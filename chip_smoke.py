@@ -10,17 +10,24 @@ no network. Phases, each reported on its own lines:
 1. device: CUDA must be available (otherwise exit 1 with no result); prints
    the card's name and ``nvidia-smi`` name and power limit;
 2. build: compiles the kernels under ``gfplslam_torch/csrc`` into
-   ``build/gfplslam_torch/`` and prints the seconds it took;
+   ``build/gfplslam_torch/`` (one ``nvcc`` per source, in parallel) and
+   prints the seconds it took and each kernel's ``ptxas`` report;
 3. kernels: the FAST-9 and Hamming kernels against their plain PyTorch
-   versions on the card, bit-exact (``torch.equal``) at the main-path shapes,
-   and each one's time beside the plain version's (CUDA events, median);
+   versions on the card, bit-exact (``torch.equal``) at the main-path inputs
+   and at the edge cases a redesign can break; then, at the main-path
+   shapes, each kernel's device time (launches captured in a CUDA graph over
+   buffers that exceed the L2 cache, replayed between two events), its
+   wrapper's host time per call, the plain version's device time, and the
+   bound (the larger of bytes over the HBM rate and operations over the
+   issue rate), all by ``gfplslam_torch/utils/kernel_bench.py``;
 4. small VO: the 376x240 world of ``tests/test_vo_e2e.py`` through
    ``VisualOdometry`` (gates: not lost, accepted > 0.6, ATE < 0.06 m);
 5. full-width VO: the 752x480 EuRoC operating point with the default Config
    through ``run_vo_scan`` (one warm-up, median of 3 timed runs; gates: not
    lost, accepted > 0.6, ATE < 5% of the path), with both kernels' launch
-   counts checked against the design (2 FAST launches per frame, 2 Hamming
-   calls on the first frame and 4 on every tracked frame).
+   counts of the first timed run checked against the design (2 FAST launches
+   per frame, 2 Hamming calls on the first frame and 4 on every tracked
+   frame); the record's launches per frame come from those counts.
 
 Any failure raises, so the script exits non-zero before the last line. The
 line before the last holds the kernels' JSON record; the last line is
@@ -39,30 +46,13 @@ from pathlib import Path
 import numpy as np
 
 HERE = Path(__file__).resolve().parent
-THRESHOLDS = (10.0, 20.0, 35.0)
+# 7.3 and 19.9 are not bf16 values: the threshold's own rounding counts
+THRESHOLDS = (7.3, 10.0, 19.9, 20.0, 35.0)
 
 
 def _fail(msg: str) -> None:
     print(f"chip_smoke: {msg}", file=sys.stderr)
     sys.exit(1)
-
-
-def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median device time of one call of ``fn``, by CUDA events."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def phase_device():
@@ -85,98 +75,147 @@ def phase_build():
     t0 = time.perf_counter()
     kernels.load()
     secs = time.perf_counter() - t0
-    print(f"[build] {kernels.library_path().relative_to(HERE)} ready in "
-          f"{secs:.2f} s (nvcc {kernels.build_seconds if kernels.build_seconds is not None else 'cached'})")
+    nvcc = (f"{kernels.build_seconds:.2f} s" if kernels.build_seconds is not None
+            else "cached")
+    print(f"[build] {len(kernels.KERNELS)} libraries under "
+          f"{kernels.BUILD_ROOT.relative_to(HERE)} ready in {secs:.2f} s "
+          f"(nvcc {nvcc})")
+    for source, report in kernels.ptxas_report().items():
+        for line in report.splitlines():
+            if "Used" in line or "stack frame" in line:
+                print(f"[build] {source}: {line.strip()}")
+
+
+def _check_fast(label, imgs, need_corner):
+    """Kernel == plain at every threshold; returns the max abs difference."""
+    import torch
+    from gfplslam_torch.ops.fast import fast_score_cuda, fast_score_map_torch
+    err = 0.0
+    for th in THRESHOLDS:
+        out = fast_score_cuda(imgs, th)
+        ref = fast_score_map_torch(imgs, th)
+        torch.cuda.synchronize()
+        err = max(err, float((out - ref).abs().max()))
+        if not torch.equal(out, ref):
+            _fail(f"FAST kernel != plain at {label} t={th}: "
+                  f"{int((out != ref).sum())} pixels differ, max {err}")
+        if need_corner and float(ref.max()) <= 0:
+            _fail(f"FAST plain version found no corner at {label} t={th}")
+    print(f"[kernels] FAST {label}: exact at t={THRESHOLDS}")
+    return err
+
+
+def _check_hamming(label, a, b, va, vb, expect=None):
+    """Kernel == plain (and == ``expect`` where given); returns max abs diff."""
+    import torch
+    from gfplslam_torch.ops.hamming import hamming_cuda, hamming_matrix_torch
+    out = hamming_cuda(a, b, va, vb)
+    ref = hamming_matrix_torch(a, b, va, vb)
+    torch.cuda.synchronize()
+    err = int((out - ref).abs().max()) if out.numel() else 0
+    if not torch.equal(out, ref):
+        _fail(f"Hamming kernel != plain at {label}: "
+              f"{int((out != ref).sum())} entries differ")
+    if expect is not None and not bool((ref == expect).all()):
+        _fail(f"Hamming plain version != {expect} at {label}")
+    print(f"[kernels] Hamming {label}: exact")
+    return err
 
 
 def phase_kernels(dev):
-    """Kernel vs plain version on the card, exact; times at main-path
-    shapes. Returns the kernels' JSON records (without launches)."""
+    """Kernel vs plain version on the card, exact, then times and bounds at
+    the main-path shapes. Returns the kernels' JSON records (launches are
+    filled in by the full-width phase)."""
     import torch
-    from gfplslam_torch.config import CameraParams
-    from gfplslam_torch.io import synthetic
+    from gfplslam_torch.ops import kernels
     from gfplslam_torch.ops.fast import fast_score_cuda, fast_score_map_torch
     from gfplslam_torch.ops.hamming import hamming_cuda, hamming_matrix_torch
+    from gfplslam_torch.utils import kernel_bench as kb
 
     rng = np.random.default_rng(2024)
+    main_fast = kb.fast_main_inputs(dev)
     fast_err = 0.0
-    fast_inputs = {
-        "level0 [2,480,752]": rng.integers(0, 256, (2, 480, 752)),
-        "levels1-3 [6,400,627]": rng.integers(0, 256, (6, 400, 627)),
+    for label, imgs in main_fast.items():
+        fast_err = max(fast_err, _check_fast(f"EuRoC pyramid {label}", imgs, True))
+    fast_cases = {
+        "uniform uint8 [2,480,752]": rng.integers(0, 256, (2, 480, 752)),
+        "uniform uint8 [6,400,627]": rng.integers(0, 256, (6, 400, 627)),
+        "uniform float [1,7,7]": rng.uniform(0, 255, (1, 7, 7)),
+        "uniform float [3,37,53]": rng.uniform(0, 255, (3, 37, 53)),
+        "uniform float [2,481,753]": rng.uniform(0, 255, (2, 481, 753)),
     }
-    world = synthetic.make_world(n_frames=2, n_points=900, n_lines=90, seed=3,
-                                 cam=CameraParams())
-    fast_inputs["rendered EuRoC pair [2,480,752]"] = np.stack(
-        synthetic.render_frame(world, 0, noise=1.5))
-    for label, arr in fast_inputs.items():
+    for label, arr in fast_cases.items():
         imgs = torch.as_tensor(np.asarray(arr, np.float32), device=dev)
-        for th in THRESHOLDS:
-            out = fast_score_cuda(imgs, th)
-            ref = fast_score_map_torch(imgs, th)
-            torch.cuda.synchronize()
-            err = float((out - ref).abs().max())
-            fast_err = max(fast_err, err)
-            if not torch.equal(out, ref):
-                _fail(f"FAST kernel != plain at {label} t={th}: "
-                      f"{int((out != ref).sum())} pixels differ, max {err}")
-            if float(ref.max()) <= 0:
-                _fail(f"FAST plain version found no corner at {label} t={th}")
-        print(f"[kernels] FAST {label}: exact at t={THRESHOLDS}")
+        fast_err = max(fast_err, _check_fast(label, imgs, min(arr.shape[1:]) > 32))
+    # a contiguous view 4 bytes into its storage: rows of 752 px would take
+    # the 16-byte loads if only the width were checked
+    flat = torch.as_tensor(rng.uniform(0, 255, 2 * 480 * 752 + 1).astype(np.float32),
+                           device=dev)
+    fast_err = max(fast_err, _check_fast("offset view [2,480,752]",
+                                         flat[1:].view(2, 480, 752), True))
+
+    def desc(n):
+        return torch.as_tensor(rng.integers(-2**31, 2**31, (n, 8)),
+                               dtype=torch.int32, device=dev)
+
+    def mask(n):
+        return torch.as_tensor(rng.random(n) < 0.8, device=dev)
 
     ham_err = 0
-    ham_cases = [(1024, 1024, True), (512, 512, True), (100, 60, True),
-                 (100, 60, False)]
-    for n, m, masked in ham_cases:
-        a = torch.as_tensor(rng.integers(-2**31, 2**31, (n, 8)), dtype=torch.int32,
-                            device=dev)
-        b = torch.as_tensor(rng.integers(-2**31, 2**31, (m, 8)), dtype=torch.int32,
-                            device=dev)
-        va = torch.as_tensor(rng.random(n) < 0.8, device=dev) if masked else None
-        vb = torch.as_tensor(rng.random(m) < 0.8, device=dev) if masked else None
-        out = hamming_cuda(a, b, va, vb)
-        ref = hamming_matrix_torch(a, b, va, vb)
-        torch.cuda.synchronize()
-        err = int((out - ref).abs().max())
-        ham_err = max(ham_err, err)
-        if not torch.equal(out, ref):
-            _fail(f"Hamming kernel != plain at {n}x{m} masked={masked}: "
-                  f"{int((out != ref).sum())} entries differ")
-        print(f"[kernels] Hamming {n}x{m} masked={masked}: exact")
+    for n in kb.HAMMING_SHAPES:
+        ham_err = max(ham_err, _check_hamming(f"{n}x{n} masks both",
+                                              desc(n), desc(n), mask(n), mask(n)))
+    # every pair of edge sizes, the four maskings spread as a Latin square
+    sides = ("both", "a only", "b only", "none")
+    sizes = (1, 7, 1023, 1025)
+    for i, n in enumerate(sizes):
+        for j, m in enumerate(sizes):
+            side = sides[(i + j) % 4]
+            va = mask(n) if side in ("both", "a only") else None
+            vb = mask(m) if side in ("both", "b only") else None
+            ham_err = max(ham_err, _check_hamming(f"{n}x{m} masks {side}",
+                                                  desc(n), desc(m), va, vb))
+    zeros = torch.zeros(7, 8, dtype=torch.int32, device=dev)
+    ones = torch.full((1025, 8), -1, dtype=torch.int32, device=dev)
+    ham_err = max(ham_err, _check_hamming("7x1025 all-zero vs all-ones",
+                                          zeros, ones, None, None, expect=256))
 
-    # times at the shapes one full-width frame gives each kernel
-    fast_shapes = [torch.as_tensor(np.asarray(fast_inputs[k], np.float32), device=dev)
-                   for k in ("level0 [2,480,752]", "levels1-3 [6,400,627]")]
-    thr = torch.tensor([20.0], device=dev)
-    fast_ms = plain_fast_ms = 0.0
-    for imgs in fast_shapes:
-        k_ms = cuda_ms(lambda: fast_score_cuda(imgs, thr))
-        p_ms = cuda_ms(lambda: fast_score_map_torch(imgs, thr))
-        print(f"[kernels] FAST {list(imgs.shape)}: kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms")
-        fast_ms += k_ms
-        plain_fast_ms += p_ms
-    ham_ms = plain_ham_ms = 0.0
-    for n in (1024, 512, 1024, 512):   # stereo pts, stereo lines, cross pts, cross lines
-        a = torch.as_tensor(rng.integers(-2**31, 2**31, (n, 8)), dtype=torch.int32,
-                            device=dev)
-        v = torch.ones(n, dtype=torch.bool, device=dev)
-        k_ms = cuda_ms(lambda: hamming_cuda(a, a, v, v))
-        p_ms = cuda_ms(lambda: hamming_matrix_torch(a, a, v, v))
-        print(f"[kernels] Hamming {n}x{n}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-        ham_ms += k_ms
-        plain_ham_ms += p_ms
-    print(f"[kernels] per full-width frame: FAST kernel {fast_ms:.4f} ms vs plain "
-          f"{plain_fast_ms:.4f} ms; Hamming kernel {ham_ms:.4f} ms vs plain "
-          f"{plain_ham_ms:.4f} ms")
+    # device times at the shapes one full-width frame gives each kernel
+    lib = kernels.load()
+    thr = torch.tensor([kb.MAIN_THRESHOLD], device=dev)
+    fast_ms = kb.fast_device_ms(lib, main_fast, thr)
+    fast_host = statistics.median(kb.host_ms(lambda: fast_score_cuda(x, thr))
+                                  for x in main_fast.values())
+    plain_fast_ms = sum(kb.graph_ms([lambda: fast_score_map_torch(x, thr)] * 10)
+                        for x in main_fast.values())
+    fast_bound_ms, fast_by = kb.fast_bound(main_fast)
+    main_ham = kb.hamming_main_inputs(dev, rng)
+    ham_ms = kb.hamming_device_ms(lib, main_ham)
+    ham_host = statistics.median(kb.host_ms(lambda: hamming_cuda(*args))
+                                 for args in main_ham.values())
+    plain_ham_ms = 2 * sum(kb.graph_ms([lambda: hamming_matrix_torch(*args)] * 10)
+                           for args in main_ham.values())
+    ham_bound_ms, ham_by = kb.hamming_bound(main_ham)
+    for name, dev_ms, bound_ms, by, plain_ms, host in (
+            ("FAST", fast_ms, fast_bound_ms, fast_by, plain_fast_ms, fast_host),
+            ("Hamming", ham_ms, ham_bound_ms, ham_by, plain_ham_ms, ham_host)):
+        print(f"[kernels] {name} per full-width frame: device {dev_ms:.5f} ms, "
+              f"bound {bound_ms:.5f} ms ({by}), share of bound "
+              f"{bound_ms / dev_ms:.3f}; plain {plain_ms:.5f} ms; wrapper host "
+              f"{host:.5f} ms per call")
     return [
         {"name": "fast9_score", "route": "cuda",
          "source": "gfplslam_torch/csrc/fast_score.cu",
          "replaces": "gfplslam_tpu/ops/pallas/fast_pl.py:41",
-         "max_abs_err": fast_err, "ms": fast_ms, "plain_ms": plain_fast_ms},
+         "max_abs_err": fast_err, "ms": fast_ms, "host_ms": fast_host,
+         "plain_ms": plain_fast_ms, "bound_ms": fast_bound_ms,
+         "bound_by": fast_by, "library_ms": None},
         {"name": "hamming_matrix", "route": "cuda",
          "source": "gfplslam_torch/csrc/hamming.cu",
          "replaces": "gfplslam_tpu/ops/pallas/hamming_pl.py:28",
-         "max_abs_err": float(ham_err), "ms": ham_ms, "plain_ms": plain_ham_ms},
+         "max_abs_err": float(ham_err), "ms": ham_ms, "host_ms": ham_host,
+         "plain_ms": plain_ham_ms, "bound_ms": ham_bound_ms,
+         "bound_by": ham_by, "library_ms": None},
     ]
 
 
@@ -222,6 +261,7 @@ def phase_full_vo(dev, records):
     from gfplslam_torch.models.vo import run_vo_scan
     from gfplslam_torch.ops.fast import fast_score_cuda
     from gfplslam_torch.ops.hamming import hamming_cuda
+    from gfplslam_torch.utils.kernel_bench import u8
     from gfplslam_torch.utils.trajectory import ate_rmse
 
     cfg = Config(camera=CameraParams())
@@ -229,9 +269,6 @@ def phase_full_vo(dev, records):
     world = synthetic.make_world(n_frames=n, n_points=900, n_lines=90, seed=3,
                                  cam=cfg.camera)
     frames = [synthetic.render_frame(world, i, noise=1.5) for i in range(n)]
-
-    def u8(imgs):  # the uint8 camera-byte contract of bench.py
-        return np.clip(np.round(np.asarray(imgs)), 0, 255).astype(np.uint8)
 
     imgs_l = torch.as_tensor(u8(np.stack([f[0] for f in frames])), device=dev)
     imgs_r = torch.as_tensor(u8(np.stack([f[1] for f in frames])), device=dev)
@@ -258,8 +295,13 @@ def phase_full_vo(dev, records):
     print(f"[full-vo] launches in one run: {launches} (expected {expected})")
     if launches != expected:
         _fail(f"kernel launch counts {launches} != expected {expected}")
+    # per frame, from this run's counts: FAST on every frame; Hamming on
+    # every tracked frame, after the first frame's two stereo calls
+    per_frame = {"fast9_score": launches["fast9_score"] / n,
+                 "hamming_matrix": (launches["hamming_matrix"] - 2) / (n - 1)}
     for r in records:
         r["launches"] = launches[r["name"]]
+        r["launches_per_frame"] = per_frame[r["name"]]
 
     elapsed = statistics.median(samples)
     fps = (n - 1) / elapsed

@@ -8,7 +8,8 @@ Python loop over frames here; the keyframe reset is selected with
 from the device until the caller asks for the result. ``VisualOdometry``
 is the interactive driver: one batched device-to-host read per frame.
 
-Every entry point takes the compute device explicitly.
+Every entry point runs on the CUDA card unless the caller passes another
+``device`` (the CPU tests pass ``torch.device("cpu")``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from gfplslam_torch.config import Config
 from gfplslam_torch.models import tracker as trk
 from gfplslam_torch.models.frame import StereoFrame, process_stereo_pair
 from gfplslam_torch.utils.timing import StageTimer, TimeLog, TimeLogWriter
+
+CUDA = torch.device("cuda")
 
 
 def _as_device(x, device: torch.device, dtype=None) -> torch.Tensor:
@@ -53,7 +56,7 @@ def _scan_step(cfg: Config, carry, img_l, img_r, ts):
 
 
 def init_scan_carry(cfg: Config, img_l, img_r, timestamp, *,
-                    device: torch.device):
+                    device: torch.device = CUDA):
     """Frame-0 carry for :func:`run_vo_scan_chunk`. Detection runs at the
     FAST floor threshold (the bootstrap analog of the reference's
     looser-gated extractInitialStereoFeatures, stereoFrame.cpp:148-336).
@@ -68,7 +71,7 @@ def init_scan_carry(cfg: Config, img_l, img_r, timestamp, *,
 
 
 def run_vo_scan_chunk(cfg: Config, carry, imgs_l, imgs_r, timestamps, *,
-                      device: torch.device):
+                      device: torch.device = CUDA):
     """One chunk of the whole-sequence scan, tracker carry in and out.
 
     Args: carry from :func:`init_scan_carry` or a previous chunk;
@@ -93,7 +96,7 @@ def run_vo_scan_chunk(cfg: Config, carry, imgs_l, imgs_r, timestamps, *,
 
 
 def run_vo_scan(cfg: Config, imgs_l, imgs_r, timestamps, *,
-                device: torch.device):
+                device: torch.device = CUDA):
     """Whole-sequence visual odometry: every frame's front-end + tracker on
     ``device`` with no host read between frames.
 
@@ -134,7 +137,7 @@ class FrameRecord:
 class VisualOdometry:
     """Host-driven VO: one :meth:`process` call per stereo pair."""
     cfg: Config
-    device: torch.device
+    device: torch.device = CUDA
     state: Optional[trk.TrackerState] = None
     prev_frame: Optional[StereoFrame] = None
     prev_time: float = 0.0

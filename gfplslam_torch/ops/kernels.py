@@ -1,11 +1,14 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
-The sources compile with ``nvcc`` into one shared library with a plain C
-interface, loaded with ``ctypes``. The build runs at first use, from the
-sources in this checkout only, into ``build/gfplslam_torch/<hash>/`` at the
-repo root (git-ignored), where ``<hash>`` covers the sources and the flags,
-so an edited kernel rebuilds and an unchanged one loads at once. Nothing is
-built while a module is imported, and nothing is built for CPU tensors.
+Each source compiles with ``nvcc`` into a shared library of its own with a
+plain C interface, loaded with ``ctypes``; the sources build in parallel,
+one ``nvcc`` each. The build runs at first use, from the sources in this
+checkout only, into ``build/gfplslam_torch/<hash>/`` at the repo root
+(git-ignored), where ``<hash>`` covers the source and the flags, so an
+edited kernel rebuilds and an unchanged one loads at once. ``ptxas``'s
+report (registers, shared memory, stack, spills) is kept beside each
+library as ``ptxas.txt``. Nothing is built while a module is imported, and
+nothing is built for CPU tensors.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
@@ -21,25 +24,25 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fast_score.cu", "hamming.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "gfplslam_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures: (name, argtypes); every entry returns cudaError_t as int
-_SIGNATURES = {
-    "gfpl_fast_score": (_P, _P, _I, _I, _I, _P, _P),
-    "gfpl_hamming": (_P, _P, _P, _P, _P, _I, _I, _P),
+# source -> its C entry points: (name, argtypes); each returns cudaError_t
+KERNELS = {
+    "fast_score.cu": {"gfpl_fast_score": (_P, _P, _I, _I, _I, _P, _P)},
+    "hamming.cu": {"gfpl_hamming": (_P, _P, _P, _P, _P, _I, _I, _P)},
 }
 
-_lib: ctypes.CDLL | None = None
-build_seconds: float | None = None  # wall time of this process's build
+_libs: dict[Path, SimpleNamespace] = {}
+build_seconds: float | None = None  # wall time of this process's last build
 
 
 def _nvcc() -> str:
@@ -55,50 +58,69 @@ def _nvcc() -> str:
         "under gfplslam_torch/csrc must be built with the CUDA toolkit")
 
 
-def _source_hash() -> str:
+def library_path(source: Path) -> Path:
+    """Where the library of one ``.cu`` source lives, by content hash."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
-    return h.hexdigest()[:16]
+    h.update(source.name.encode())
+    h.update(source.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16] / f"lib{source.stem}.so"
 
 
-def library_path() -> Path:
-    return BUILD_ROOT / _source_hash() / "libgfplslam_kernels.so"
-
-
-def build() -> Path:
-    """Compile the kernels if this source hash has no library yet."""
+def build(csrc: Path = CSRC) -> dict[str, Path]:
+    """Compile every source of ``csrc`` that has no library yet, one
+    ``nvcc`` per source, all started together. Returns source -> library."""
     global build_seconds
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
+    libs = {name: library_path(csrc / name) for name in KERNELS}
+    todo = {name: out for name, out in libs.items() if not out.exists()}
+    if not todo:
+        return libs
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp] + [str(CSRC / s) for s in SOURCES]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    procs = {}
+    for name, out in todo.items():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(csrc / name)]
+        procs[name] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (cmd, tmp, proc) in procs.items():
+        stdout, stderr = proc.communicate()
+        out = todo[name]
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                          f"{stdout}\n{stderr}")
+            continue
+        (out.parent / "ptxas.txt").write_text(stdout + stderr)
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
     build_seconds = time.perf_counter() - t0
-    return out
+    return libs
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, built on first call."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, args in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(args)
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def ptxas_report(csrc: Path = CSRC) -> dict[str, str]:
+    """source -> the ``-Xptxas -v`` lines of its build (after :func:`build`)."""
+    return {name: (library_path(csrc / name).parent / "ptxas.txt").read_text()
+            for name in KERNELS}
+
+
+def load(csrc: Path = CSRC) -> SimpleNamespace:
+    """The C entry points of the kernels under ``csrc``, built on first
+    call; one attribute per entry point. Every wrapper call comes here, so
+    a loaded set costs one dictionary lookup and no file system access."""
+    if csrc not in _libs:
+        fns = {}
+        for name, path in build(csrc).items():
+            lib = ctypes.CDLL(str(path))
+            for fn_name, args in KERNELS[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = list(args)
+                fn.restype = ctypes.c_int
+                fns[fn_name] = fn
+        _libs[csrc] = SimpleNamespace(**fns)
+    return _libs[csrc]
 
 
 def stream_ptr(device: torch.device) -> int:

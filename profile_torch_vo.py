@@ -11,7 +11,8 @@ default Config:
    (``track_step``) per frame with a synchronize after each (median ms);
 2. traces ``run_vo_scan`` with ``torch.profiler`` and prints the device
    time by kernel, the number of kernel launches per frame, and the share of
-   the traced wall time in which the device ran no kernel (idle share).
+   the traced wall time in which the device ran no kernel (idle share), and
+   the two hand-written kernels' device time per frame and per launch.
    The Chrome trace goes to ``<out>/trace.json.gz`` and the table to
    ``<out>/key_averages.txt``.
 
@@ -108,7 +109,15 @@ def main() -> None:
           f"{len(kernels) / n:.0f} per frame; device busy {covered / 1e3:.1f} ms "
           f"of a {span / 1e3:.1f} ms device span; idle share "
           f"{1 - covered / max(span, 1e-9):.3f}")
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=25)
+    averages = prof.key_averages()
+    for kernel in ("fast_score_kernel", "hamming_kernel"):
+        hits = [e for e in averages if kernel in e.key]
+        us = sum(getattr(e, "device_time_total", 0) or e.cuda_time_total
+                 for e in hits)
+        count = sum(e.count for e in hits)
+        print(f"[trace] {kernel}: {count} launches, device {us / n:.2f} us per "
+              f"frame, {us / max(count, 1):.2f} us per launch")
+    table = averages.table(sort_by="cuda_time_total", row_limit=25)
     print(table)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)

@@ -13,7 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+from gfplslam_torch.config import CameraParams, Config
+from gfplslam_torch.io import synthetic
 from gfplslam_torch.ops import fast, hamming
+from gfplslam_torch.ops.pyramid import build_pyramid_padded, level_shapes
 
 pytestmark = pytest.mark.gpu
 
@@ -25,16 +28,46 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("shape", [(1, 7, 7), (3, 37, 53), (2, 240, 376),
-                                   (6, 200, 313)])
-def test_fast_kernel_equals_plain(dev, shape):
+# 7.3 and 19.9 are not bf16 values: the threshold's own rounding counts
+THRESHOLDS = (7.3, 10.0, 19.9, 20.0, 35.0)
+
+
+@pytest.mark.parametrize("shape,offset", [
+    ((1, 7, 7), 0), ((3, 37, 53), 0), ((2, 240, 376), 0), ((6, 200, 313), 0),
+    ((2, 481, 753), 0),
+    # contiguous views that start 4 / 12 bytes into their storage, at widths
+    # that would otherwise take the 16-byte loads and stores
+    ((2, 480, 752), 1), ((1, 40, 64), 3)])
+def test_fast_kernel_equals_plain(dev, shape, offset):
     rng = np.random.default_rng(sum(shape))
-    imgs = torch.as_tensor(rng.uniform(0, 255, shape).astype(np.float32), device=dev)
-    for th in (10.0, 20.0, 35.0):
+    flat = rng.uniform(0, 255, offset + int(np.prod(shape))).astype(np.float32)
+    imgs = torch.as_tensor(flat, device=dev)[offset:].view(shape)
+    for th in THRESHOLDS:
         before = fast.fast_score_cuda.launches
         out = fast.fast_score_cuda(imgs, torch.tensor([th], device=dev))
         assert fast.fast_score_cuda.launches == before + 1
         assert torch.equal(out, fast.fast_score_map_torch(imgs, th))
+
+
+@pytest.mark.parametrize("levels", ["level 0", "levels 1-3"])
+def test_fast_kernel_equals_plain_on_pyramid(dev, levels):
+    """The main path's inputs: a rendered 752x480 pair's padded pyramid,
+    batched as frame.py batches it (non-integer intensities from level 1)."""
+    cfg = Config(camera=CameraParams())
+    world = synthetic.make_world(n_frames=1, n_points=900, n_lines=90, seed=3,
+                                 cam=cfg.camera)
+    pair = np.stack(synthetic.render_frame(world, 0, noise=1.5))
+    imgs = torch.as_tensor(np.clip(np.round(pair), 0, 255).astype(np.float32),
+                           device=dev)
+    nlv, scale = cfg.orb.nlevels, cfg.orb.scale_factor
+    pyr = build_pyramid_padded(imgs, nlv, scale)
+    h1, w1 = level_shapes(480, 752, nlv, scale)[1]
+    x = (pyr[:, 0] if levels == "level 0"
+         else pyr[:, 1:, :h1, :w1].reshape(-1, h1, w1)).contiguous()
+    for th in THRESHOLDS:
+        ref = fast.fast_score_map_torch(x, th)
+        assert float(ref.max()) > 0
+        assert torch.equal(fast.fast_score_cuda(x, th), ref)
 
 
 def test_fast_dispatch_launches_kernel(dev):
@@ -44,20 +77,36 @@ def test_fast_dispatch_launches_kernel(dev):
     assert fast.fast_score_cuda.launches == before + 1
 
 
-@pytest.mark.parametrize("n,m,masked", [(1024, 1024, True), (512, 512, True),
-                                        (100, 60, True), (33, 1, False)])
-def test_hamming_kernel_equals_plain(dev, n, m, masked):
+_EDGE = (1, 7, 1023, 1025)
+
+
+@pytest.mark.parametrize("n,m,masks,fill", [
+    (1024, 1024, "both", None), (512, 512, "both", None),
+    (100, 60, "both", None), (33, 1, "none", None),
+    *[(n, m, masks, None) for n in _EDGE for m in _EDGE
+      for masks in ("both", "a", "b", "none")],
+    # all-zero against all-ones descriptors: every distance is 256
+    (7, 1025, "none", 256)])
+def test_hamming_kernel_equals_plain(dev, n, m, masks, fill):
     rng = np.random.default_rng(n + m)
-    a = torch.as_tensor(rng.integers(-2**31, 2**31, (n, 8)), dtype=torch.int32,
-                        device=dev)
-    b = torch.as_tensor(rng.integers(-2**31, 2**31, (m, 8)), dtype=torch.int32,
-                        device=dev)
-    va = torch.as_tensor(rng.random(n) < 0.7, device=dev) if masked else None
-    vb = torch.as_tensor(rng.random(m) < 0.7, device=dev) if masked else None
+    if fill is None:
+        a = torch.as_tensor(rng.integers(-2**31, 2**31, (n, 8)),
+                            dtype=torch.int32, device=dev)
+        b = torch.as_tensor(rng.integers(-2**31, 2**31, (m, 8)),
+                            dtype=torch.int32, device=dev)
+    else:
+        a = torch.zeros(n, 8, dtype=torch.int32, device=dev)
+        b = torch.full((m, 8), -1, dtype=torch.int32, device=dev)
+    va = (torch.as_tensor(rng.random(n) < 0.7, device=dev)
+          if masks in ("both", "a") else None)
+    vb = (torch.as_tensor(rng.random(m) < 0.7, device=dev)
+          if masks in ("both", "b") else None)
     before = hamming.hamming_cuda.launches
     out = hamming.hamming_matrix(a, b, va, vb)
     assert hamming.hamming_cuda.launches == before + 1
     assert torch.equal(out, hamming.hamming_matrix_torch(a, b, va, vb))
+    if fill is not None:
+        assert bool((out == fill).all())
 
 
 def test_kernels_refuse_wrong_inputs(dev):

@@ -112,3 +112,61 @@ def test_dispatch_by_device_only():
     # the kernel wrapper refuses anything but a CUDA tensor
     with pytest.raises(ValueError):
         fast.fast_score_cuda(img, 20.0)
+
+
+def _kernel_formulation(imgs: torch.Tensor, th: float) -> torch.Tensor:
+    """The arithmetic of ``csrc/fast_score.cu`` in PyTorch bf16: a pixel with
+    no two neighbouring compass taps both bright or both dark scores 0; the
+    window trees run on the differences and the margins come after them;
+    each pair of neighbouring 9-windows (2i, 2i+1) shares its 8 middle
+    taps."""
+    img16 = imgs.to(torch.bfloat16)
+    t = torch.tensor(th).to(torch.bfloat16)
+    d = [torch.roll(img16, (-int(dy), -int(dx)), (-2, -1)) - img16
+         for dx, dy in fast.FAST_CIRCLE]
+    mn, mx = torch.minimum, torch.maximum
+    lo = [mn(d[2 * i + 1], d[(2 * i + 2) % 16]) for i in range(8)]
+    hi = [mx(d[2 * i + 1], d[(2 * i + 2) % 16]) for i in range(8)]
+    for s in (1, 2):                           # 8-tap min / max from tap 2i+1
+        lo = [mn(lo[i], lo[(i + s) % 8]) for i in range(8)]
+        hi = [mx(hi[i], hi[(i + s) % 8]) for i in range(8)]
+    bright = lo[0].new_full(lo[0].shape, float("-inf"))
+    dark = lo[0].new_full(lo[0].shape, float("inf"))
+    for i in range(8):
+        bright = mx(bright, mn(lo[i], mx(d[2 * i], d[(2 * i + 9) % 16])))
+        dark = mn(dark, mx(hi[i], mn(d[2 * i], d[(2 * i + 9) % 16])))
+    dark = -dark
+    zero = torch.zeros_like(bright)
+    score = mx(torch.where(bright > t, bright - t, zero),
+               torch.where(dark > t, dark - t, zero)).float()
+    compass = [d[k] for k in (0, 4, 8, 12)]
+    live = torch.zeros(score.shape, dtype=torch.bool)
+    for i in range(4):
+        a, b = compass[i], compass[(i + 1) % 4]
+        live |= ((a > t) & (b > t)) | ((a < -t) & (b < -t))
+    score = torch.where(live, score, torch.zeros_like(score))
+    h, w = imgs.shape[-2:]
+    yy = torch.arange(h)[:, None]
+    xx = torch.arange(w)[None, :]
+    inner = (yy >= 3) & (yy < h - 3) & (xx >= 3) & (xx < w - 3)
+    return torch.where(inner, score, torch.zeros_like(score))
+
+
+@pytest.mark.parametrize("th", [7.3, 10.0, 19.9, 35.0])
+def test_kernel_formulation_equals_plain_version(th):
+    """The identities the CUDA kernel rests on, bit for bit on the CPU: any
+    9-arc holds two neighbouring compass taps, so the compass test drops no
+    corner; bf16 rounding is monotone, so the margin min of the best
+    all-bright window is bf16(max_w min_k d_k - t); the shared-middle pairing
+    of windows gives the same max of mins. Integer, non-integer and
+    zero-padded images, and thresholds bf16 cannot represent (7.3, 19.9)."""
+    rng = np.random.default_rng(14)
+    ints = rng.integers(0, 256, (2, 60, 90)).astype(np.float32)
+    floats = rng.uniform(0, 255, (2, 60, 90)).astype(np.float32)
+    floats = (floats + np.roll(floats, 1, -1)) * np.float32(0.5)
+    floats[1, 45:, :] = 0.0
+    for arr in (ints, floats):
+        imgs = torch.from_numpy(arr)
+        ref = fast.fast_score_map_torch(imgs, th)
+        assert (ref > 0).sum() > 50
+        assert torch.equal(_kernel_formulation(imgs, th), ref)

@@ -139,8 +139,8 @@ def test_port_imports_no_jax(module):
 
 def test_port_sources_never_import_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|gfplslam_tpu)\b", re.M)
-    files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "profile_torch_vo.py")]
+    files = [os.path.join(REPO, f) for f in ("chip_smoke.py", "profile_torch_vo.py",
+                                             "profile_torch_kernels.py")]
     for root, _, names in os.walk(os.path.join(REPO, "gfplslam_torch")):
         files += [os.path.join(root, f) for f in names if f.endswith(".py")]
     for f in files:

@@ -7,6 +7,7 @@ reference's trajectory on the same world, and its three drivers
 ``run_vo_scan_chunk``) compared with each other."""
 
 import dataclasses
+import inspect
 import os
 import tempfile
 
@@ -142,3 +143,12 @@ def test_run_vo_scan_matches_visual_odometry(setup, port_vo):
         assert fr.points.valid.shape[0] == hi - lo
         chunks.append(p)
     np.testing.assert_array_equal(torch.cat(chunks).numpy(), poses[1:].numpy())
+
+
+@pytest.mark.parametrize("entry", [init_scan_carry, run_vo_scan_chunk,
+                                   run_vo_scan, VisualOdometry])
+def test_entry_points_run_on_the_card_by_default(entry):
+    """Without ``device=`` every entry point targets the CUDA card; the CPU
+    is taken only when the caller asks for it."""
+    default = inspect.signature(entry).parameters["device"].default
+    assert default == torch.device("cuda")
