@@ -95,6 +95,16 @@ def run_vo_scan_chunk(cfg: Config, carry, imgs_l, imgs_r, timestamps, *,
     return carry, torch.stack(poses), aux, _stack_tree(frames)
 
 
+def pack_chunk_aux(cfg: Config, poses: torch.Tensor, aux: dict) -> torch.Tensor:
+    """[T, 21] float32: per-frame (is_kf, accepted, lost, n_pt, n_ln,
+    flattened 4x4 pose) — the chunk's ONE device->host transfer."""
+    t = poses.shape[0]
+    return torch.cat([
+        torch.stack([aux["is_kf"], aux["accepted"], aux["lost"], aux["n_pt"],
+                     aux["n_ln"]], 1).to(torch.float32),
+        poses.reshape(t, 16).to(torch.float32)], 1)
+
+
 def run_vo_scan(cfg: Config, imgs_l, imgs_r, timestamps, *,
                 device: torch.device = CUDA):
     """Whole-sequence visual odometry: every frame's front-end + tracker on
@@ -148,6 +158,12 @@ class VisualOdometry:
     lost: bool = False
     kf_count: int = 0
     last_kf_rel: Optional[np.ndarray] = None
+
+    def rebase(self, t_base_w: np.ndarray) -> None:
+        """Re-base the tracker's absolute frame onto a corrected base-KF pose
+        (the back-end feeds BA/PGO corrections forward so subsequent frames
+        ride the optimized map, plslam_mod.cpp:471-477)."""
+        self.t_base_w = np.asarray(t_base_w, np.float64).copy()
 
     def process(self, img_l: np.ndarray, img_r: np.ndarray,
                 timestamp: float) -> FrameRecord:

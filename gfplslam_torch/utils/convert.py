@@ -16,16 +16,23 @@ import numpy as np
 import torch
 
 from gfplslam_torch import config as cfg_mod
+from gfplslam_torch.models.ba import BAProblem, BAResult
 from gfplslam_torch.models.frame import (CameraFeatures, StereoFrame,
                                          StereoLines, StereoPoints)
+from gfplslam_torch.models.loop import LoopState, LoopVerification, PoseGraphEdges
+from gfplslam_torch.models.map import KFMatchResult, MapState
+from gfplslam_torch.models.mapping import MappingResult
 from gfplslam_torch.models.pose_opt import LineMatches, PointMatches, PoseResult
 from gfplslam_torch.models.tracker import CrossMatches, TrackerState
 
 PORT_TYPES = {cls.__name__: cls for cls in (
     CameraFeatures, StereoPoints, StereoLines, StereoFrame, TrackerState,
-    PointMatches, LineMatches, PoseResult, CrossMatches)}
-DESC_FIELDS = frozenset({"desc", "pt_desc", "ln_desc"})
-INDEX_FIELDS = frozenset({"pt_curr_idx", "ln_curr_idx"})
+    PointMatches, LineMatches, PoseResult, CrossMatches, MapState, LoopState,
+    BAProblem, BAResult, LoopVerification, PoseGraphEdges, KFMatchResult,
+    MappingResult)}
+DESC_FIELDS = frozenset({"desc", "pt_desc", "ln_desc", "pt_desc_hist",
+                         "ln_desc_hist"})
+INDEX_FIELDS = frozenset({"pt_curr_idx", "ln_curr_idx", "i", "j"})
 
 
 def _leaf_to_torch(name: str, leaf, device: torch.device) -> torch.Tensor:

@@ -41,6 +41,17 @@ FAST_COMPASS_OPS_PER_PX = 4 + 8 + 7
 FAST_SCORE_OPS_PER_PX = 12 + 2 * 47 + 8
 HAMMING_SHAPES = (1024, 512)  # stereo points, stereo lines; then the same
                               # two again for cross-frame matching
+# what one keyframe of the SLAM back-end asks of the Hamming kernel at the
+# default Config (label, rows, columns, masks the caller passes): the
+# frame's points and lines against the whole landmark pools
+# (models/map.py), against the two vocabularies (models/loop.py
+# bow_vector, rows only), and one snapshot against another (verify_loop)
+HAMMING_KEYFRAME = (("map points", 1024, 16384, "both"),
+                    ("map lines", 512, 8192, "both"),
+                    ("BoW points", 1024, 4096, "rows"),
+                    ("BoW lines", 512, 4096, "rows"),
+                    ("verify points", 512, 512, "both"),
+                    ("verify lines", 256, 256, "both"))
 
 
 def u8(imgs):
@@ -113,15 +124,16 @@ def fast_launch_list(lib, imgs, thr):
 
 def hamming_launch_list(lib, a, b, va, vb):
     """Raw ``gfpl_hamming`` launches of library ``lib`` over rotating
-    output buffers."""
+    output buffers; a ``None`` mask is passed as a null pointer."""
     n, m = a.shape[0], b.shape[0]
     copies, count = rotation(4.0 * n * m)
     outs = [torch.empty((n, m), dtype=torch.int32, device=a.device)
             for _ in range(copies)]
+    pa, pb = (None if v is None else v.data_ptr() for v in (va, vb))
 
     def launch(out):
-        kernels.check(lib.gfpl_hamming(a.data_ptr(), b.data_ptr(), va.data_ptr(),
-                                       vb.data_ptr(), out.data_ptr(), n, m,
+        kernels.check(lib.gfpl_hamming(a.data_ptr(), b.data_ptr(), pa, pb,
+                                       out.data_ptr(), n, m,
                                        kernels.stream_ptr(a.device)),
                       "gfpl_hamming")
     return [functools.partial(launch, outs[i % copies]) for i in range(count)]
@@ -160,15 +172,34 @@ def hamming_main_inputs(dev, rng) -> dict:
     return out
 
 
+def hamming_keyframe_inputs(dev, rng) -> dict:
+    """One keyframe's Hamming calls (``HAMMING_KEYFRAME``), random
+    descriptors, 80%-valid masks where the caller passes one:
+    label -> (a, b, valid_a, valid_b)."""
+    out = {}
+    for label, n, m, masks in HAMMING_KEYFRAME:
+        a, b = (torch.as_tensor(rng.integers(-2**31, 2**31, (k, 8)),
+                                dtype=torch.int32, device=dev) for k in (n, m))
+        va = torch.as_tensor(rng.random(n) < 0.8, device=dev)
+        vb = torch.as_tensor(rng.random(m) < 0.8, device=dev) if masks == "both" else None
+        out[label] = (a, b, va, vb)
+    return out
+
+
 def fast_device_ms(lib, inputs: dict, thr) -> float:
     """Device time of one frame's FAST launches with library ``lib``."""
     return sum(graph_ms(fast_launch_list(lib, x, thr)) for x in inputs.values())
 
 
+def hamming_launches_ms(lib, inputs: dict) -> float:
+    """Device time of one Hamming launch per entry of ``inputs`` (one
+    keyframe's six for ``hamming_keyframe_inputs``)."""
+    return sum(graph_ms(hamming_launch_list(lib, *args)) for args in inputs.values())
+
+
 def hamming_device_ms(lib, inputs: dict) -> float:
     """Device time of one tracked frame's four Hamming launches."""
-    return 2 * sum(graph_ms(hamming_launch_list(lib, *args))
-                   for args in inputs.values())
+    return 2 * hamming_launches_ms(lib, inputs)
 
 
 def fast_candidates(imgs, threshold: float) -> int:
@@ -199,14 +230,20 @@ def fast_bound(inputs: dict) -> tuple[float, str]:
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
 
+def hamming_bytes_ms(inputs: dict) -> float:
+    """Least ms of one launch per entry of ``inputs`` at the HBM rate: the
+    descriptors and each mask passed read once, the int32 matrix written
+    once (one keyframe's bound for ``hamming_keyframe_inputs``)."""
+    nbytes = sum(32.0 * (a.shape[0] + b.shape[0]) + 4.0 * a.shape[0] * b.shape[0]
+                 + sum(0 if v is None else v.shape[0] for v in (va, vb))
+                 for a, b, va, vb in inputs.values())
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
 def hamming_bound(inputs: dict) -> tuple[float, str]:
     """(ms, "bytes") for one tracked frame's four matrices (each shape of
-    ``inputs`` twice): the descriptors and masks read once, the int32
-    matrix written once. The popcounts do not set it: on this card they run
+    ``inputs`` twice). The popcounts do not set it: on this card they run
     on the binary tensor cores (``mma.m16n8k256 .b1 .and.popc``, one 256-bit
     descriptor per k step), whose rate the data sheet does not publish, so
     no operation bound is stated; the least time is the one the bytes need."""
-    nbytes = sum(2 * (33.0 * (a.shape[0] + b.shape[0])
-                      + 4.0 * a.shape[0] * b.shape[0])
-                 for a, b, _, _ in inputs.values())
-    return 1e3 * nbytes / HBM_BYTES_PER_S, "bytes"
+    return 2 * hamming_bytes_ms(inputs), "bytes"

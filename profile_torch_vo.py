@@ -34,6 +34,40 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 
 
+def device_summary(prof) -> tuple[int, float, float]:
+    """(device ops, busy us, span us) of a ``torch.profiler`` trace: the
+    device's kernels, the union of their intervals, and the time from the
+    first kernel's start to the last one's end."""
+    import torch
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    covered, cur_s, cur_e = 0.0, None, None
+    for s, e in busy:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                covered += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        covered += cur_e - cur_s
+    span = (busy[-1][1] - busy[0][0]) if busy else 0.0
+    return len(kernels), covered, span
+
+
+def save_trace(prof, out: Path, table: str) -> None:
+    """The Chrome trace to ``out/trace.json.gz``, the table to
+    ``out/key_averages.txt``."""
+    out.mkdir(parents=True, exist_ok=True)
+    trace = out / "trace.json"
+    prof.export_chrome_trace(str(trace))
+    with open(trace, "rb") as src, gzip.open(f"{trace}.gz", "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    trace.unlink()
+    (out / "key_averages.txt").write_text(table)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=16)
@@ -90,23 +124,10 @@ def main() -> None:
         run_vo_scan(cfg, imgs_l, imgs_r, ts, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    covered, cur_s, cur_e = 0.0, None, None
-    for s, e in busy:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                covered += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        covered += cur_e - cur_s
-    span = (busy[-1][1] - busy[0][0]) if busy else 0.0
+    n_ops, covered, span = device_summary(prof)
     print(f"[trace] run_vo_scan {n} frames: wall {wall * 1e3:.1f} ms "
-          f"({wall * 1e3 / n:.2f} ms/frame); {len(kernels)} device ops = "
-          f"{len(kernels) / n:.0f} per frame; device busy {covered / 1e3:.1f} ms "
+          f"({wall * 1e3 / n:.2f} ms/frame); {n_ops} device ops = "
+          f"{n_ops / n:.0f} per frame; device busy {covered / 1e3:.1f} ms "
           f"of a {span / 1e3:.1f} ms device span; idle share "
           f"{1 - covered / max(span, 1e-9):.3f}")
     averages = prof.key_averages()
@@ -119,14 +140,7 @@ def main() -> None:
               f"frame, {us / max(count, 1):.2f} us per launch")
     table = averages.table(sort_by="cuda_time_total", row_limit=25)
     print(table)
-    out = Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
-    trace = out / "trace.json"
-    prof.export_chrome_trace(str(trace))
-    with open(trace, "rb") as src, gzip.open(f"{trace}.gz", "wb") as dst:
-        shutil.copyfileobj(src, dst)
-    trace.unlink()
-    (out / "key_averages.txt").write_text(table)
+    save_trace(prof, Path(args.out), table)
 
 
 if __name__ == "__main__":

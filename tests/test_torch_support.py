@@ -124,7 +124,13 @@ def test_convert_descriptor_words_by_bit_view():
 
 
 @pytest.mark.parametrize("module", ["gfplslam_torch.models.vo",
-                                    "gfplslam_torch.utils.convert"])
+                                    "gfplslam_torch.utils.convert",
+                                    "gfplslam_torch.models.ba_core",
+                                    "gfplslam_torch.models.ba",
+                                    "gfplslam_torch.models.map",
+                                    "gfplslam_torch.models.loop",
+                                    "gfplslam_torch.models.mapping",
+                                    "gfplslam_torch.models.slam"])
 def test_port_imports_no_jax(module):
     code = (f"import sys, {module}; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
@@ -140,7 +146,8 @@ def test_port_imports_no_jax(module):
 def test_port_sources_never_import_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|gfplslam_tpu)\b", re.M)
     files = [os.path.join(REPO, f) for f in ("chip_smoke.py", "profile_torch_vo.py",
-                                             "profile_torch_kernels.py")]
+                                             "profile_torch_kernels.py",
+                                             "profile_torch_slam.py")]
     for root, _, names in os.walk(os.path.join(REPO, "gfplslam_torch")):
         files += [os.path.join(root, f) for f in names if f.endswith(".py")]
     for f in files:
@@ -161,3 +168,100 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                              env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("name", ["vocab_synth.npz", "vocab_synth_128.npz",
+                                  "vocab_synth4096.npz"])
+def test_vocabulary_files_are_byte_copies(name):
+    """The port reads its own copies of the reference's trained codebooks."""
+    import hashlib
+    digest = [hashlib.sha256(open(os.path.join(REPO, pkg, "data", name), "rb").read()
+                             ).hexdigest() for pkg in ("gfplslam_tpu", "gfplslam_torch")]
+    assert digest[0] == digest[1]
+
+
+@pytest.mark.parametrize("vocab_k", [128, 256, 4096, 64])
+def test_loaded_vocabularies_and_idf_equal(vocab_k):
+    """Words and frozen idf at every shipped size, and the random-anchor
+    fallback (64 words, no idf), equal to the reference's."""
+    from gfplslam_tpu.models import loop as ref_loop
+    from gfplslam_torch.models import loop
+    for got, want in zip(loop.active_vocab(vocab_k), ref_loop.active_vocab(vocab_k)):
+        assert got.dtype == want.dtype == np.uint32
+        np.testing.assert_array_equal(got, want)
+    got, want = loop.active_idf(vocab_k), ref_loop.active_idf(vocab_k)
+    assert (got is None) == (want is None) == (vocab_k == 64)
+    if want is not None:
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    assert loop.trained_sizes() == sorted(ref_loop._TRAINED)
+    assert loop.vocab_source().endswith("gfplslam_torch/data/vocab_synth.npz")
+    assert loop.DATA_DIR == os.path.join(REPO, "gfplslam_torch", "data")
+
+
+@pytest.mark.parametrize("with_df", [True, False])
+def test_load_vocab_installs_a_codebook(tmp_path, monkeypatch, with_df):
+    """``load_vocab`` of a codebook file gives the reference's words and idf
+    at its word count, and the device copy is their int32 bit view."""
+    from gfplslam_tpu.models import loop as ref_loop
+    from gfplslam_torch.models import loop
+    monkeypatch.setattr(loop, "_VOCAB", loop._Vocabularies())
+    monkeypatch.setattr(ref_loop, "_TRAINED", dict(ref_loop._TRAINED))
+    monkeypatch.setattr(ref_loop, "VOCAB_SOURCE", ref_loop.VOCAB_SOURCE)
+    rng = np.random.default_rng(5)
+    arrays = dict(vocab_p=rng.integers(0, 2 ** 32, (32, 8), dtype=np.uint32),
+                  vocab_l=rng.integers(0, 2 ** 32, (32, 8), dtype=np.uint32))
+    if with_df:
+        arrays.update(df_p=rng.integers(0, 50, 32).astype(np.float32),
+                      df_l=rng.integers(0, 50, 32).astype(np.float32),
+                      n_docs=np.float32(60))
+    path = str(tmp_path / "codebook.npz")
+    np.savez(path, **arrays)
+    loop.load_vocab(path)
+    ref_loop.load_vocab(path)
+    for got, want in zip(loop.active_vocab(32), ref_loop.active_vocab(32)):
+        np.testing.assert_array_equal(got, want)
+    got, want = loop.active_idf(32), ref_loop.active_idf(32)
+    assert (got is None) == (want is None) == (not with_df)
+    if with_df:
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    assert loop.vocab_source() == "set_vocab()"
+    vp, vl, _ = loop._device_vocab(32, torch.device("cpu"))
+    assert torch.equal(vp, torch.from_numpy(arrays["vocab_p"].view(np.int32)))
+    assert torch.equal(vl, torch.from_numpy(arrays["vocab_l"].view(np.int32)))
+
+
+@pytest.mark.parametrize("state", ["MapState", "LoopState"])
+def test_convert_round_trips_back_end_state(state):
+    """Reference map / loop state -> port -> numpy, every leaf equal; the
+    descriptor rings and snapshots by bit view."""
+    from gfplslam_tpu import config as rc
+    from gfplslam_tpu.models import loop as ref_loop
+    from gfplslam_tpu.models import map as ref_map
+    cfg = rc.Config(cap=rc.CapacityParams(n_kf_max=8, n_map_pt=64, n_map_ln=32,
+                                          n_obs_pt=16, n_obs_ln=8, vocab_k=16))
+    rng = np.random.default_rng(8)
+    ref = (ref_map.empty_map(cfg) if state == "MapState"
+           else ref_loop.empty_loop_state(cfg))
+    leaves = {}
+    for name, v in zip(ref._fields, ref):
+        v = np.asarray(v)
+        if v.dtype == np.uint32:
+            v = rng.integers(0, 2 ** 32, v.shape, dtype=np.uint32)
+        elif v.dtype == bool:
+            v = rng.random(v.shape) < 0.5
+        elif v.dtype.kind == "i":
+            v = rng.integers(-5, 500, v.shape).astype(v.dtype)
+        else:
+            v = rng.normal(0, 1, v.shape).astype(v.dtype)
+        leaves[name] = v
+    ref = type(ref)(**leaves)
+    port = convert.to_torch(ref, torch.device("cpu"))
+    assert type(port).__module__.startswith("gfplslam_torch.models.")
+    back = convert.to_numpy(port)
+    for name, g, w in zip(ref._fields, back, ref):
+        assert g.dtype == w.dtype, name
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    desc = "pt_desc_hist" if state == "MapState" else "pt_desc"
+    assert getattr(port, desc).dtype == torch.int32
