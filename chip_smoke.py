@@ -22,7 +22,8 @@ no network. Phases, each reported on its own lines:
    keyframe, its wrapper's host time per call, the plain version's device
    time, and the bound (the larger of bytes over the HBM rate and
    operations over the issue rate), all by
-   ``gfplslam_torch/utils/kernel_bench.py``;
+   ``gfplslam_torch/utils/kernel_bench.py``; FAST's record keeps these
+   EuRoC times under ``euroc`` once phase 8 puts the KITTI frame's there;
 4. small VO: the 376x240 world of ``tests/test_vo_e2e.py`` through
    ``VisualOdometry`` (gates: not lost, accepted > 0.6, ATE < 0.06 m);
 5. full-width VO: the 752x480 EuRoC operating point with the default Config
@@ -43,26 +44,55 @@ no network. Phases, each reported on its own lines:
    imply; then, on six keyframes' recorded inputs, the median time of one
    ``mapping_step`` and of its local BA (ms per LM iteration, iterations
    until convergence). Gates: not lost, >= 1 closure, ATE with loop closure
-   below ATE without, launch counts as designed. The record's ``launches``
-   are this phase's loop-closure run.
+   below ATE without, launch counts as designed;
+8. KITTI run_slam: acceptance config 3's world (KITTI 00 rig, 1241x376, 61
+   frames, forward motion, textured) written as a KITTI sequence of binary
+   PGM files under ``build/chip_smoke/kitti/00/`` and run through
+   ``apps/run_slam.py --kitti DIR --chunk 20`` (default Config and
+   capacities, loop closure and async mapping on). Gates: not lost, >= 2
+   keyframes, ATE below 5% of the path, the three output files parse back
+   with one row per frame (keyframe rows for the keyframe file), launches
+   as the keyframes and closures imply (the record's ``launches``); then
+   ``SLAMSystem.save`` / ``load`` into a fresh system with every
+   map/loop/tracker field equal; then the FAST kernel exact at every
+   threshold on frame 0's pyramid ([2,376,1241] and levels 1-3 batched),
+   and its device time, bound, plain time and host time there (the
+   record's);
+9. timed VO: ``run_slam --synthetic --timing --vo-only --frames 8``
+   (``TimedVO``) against ``VisualOdometry`` on the same frames: equal
+   trajectories, every ``time_*`` field > 0 on every tracked frame; then
+   ``run_slam --kitti DIR --timing --vo-only -n 20`` on phase 8's
+   sequence: the median ms of each stage at KITTI width;
+10. vocab: the Hamming kernel exact at ``train_vocab``'s [8192, 4096] and
+   [1000, 4096], its device time per assignment block, and ``kmajority``
+   (20,000 descriptors, k = 4096, 5 iterations) on the card equal to the CPU;
+11. rectify: a two-frame EuRoC tree of raw PGM frames through ``load_euroc``
+   and the native C++ loader, and ``rectify_pair`` on the card, each within
+   1e-3 of ``rectify_pair`` on the CPU.
 
-Any failure raises, so the script exits non-zero before the last line. The
-line before the last holds the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+Any failure raises, so the script exits non-zero before the last line and
+names the failing phase on stderr. The line before the last holds the
+kernels' JSON record; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import multiprocessing
+import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
+from functools import partial
 from pathlib import Path
 
 import numpy as np
 
 HERE = Path(__file__).resolve().parent
+KITTI_DIR = HERE / "build" / "chip_smoke" / "kitti" / "00"
 # 7.3 and 19.9 are not bf16 values: the threshold's own rounding counts
 THRESHOLDS = (7.3, 10.0, 19.9, 20.0, 35.0)
 
@@ -70,6 +100,15 @@ THRESHOLDS = (7.3, 10.0, 19.9, 20.0, 35.0)
 def _fail(msg: str) -> None:
     print(f"chip_smoke: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def _render(world, n: int, noise: float) -> list:
+    """Frames 0..n-1 of a synthetic world, rendered on the host's cores (each
+    frame's noise is seeded by its index, so the frames equal a loop's)."""
+    from gfplslam_torch.io import synthetic
+    workers = min(8, os.cpu_count() or 1, n)
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        return list(ex.map(partial(synthetic.render_frame, world, noise=noise), range(n)))
 
 
 def phase_device():
@@ -145,7 +184,6 @@ def phase_kernels(dev):
     filled in by the full-width phase)."""
     import torch
     from gfplslam_torch.ops import kernels
-    from gfplslam_torch.ops.fast import fast_score_cuda, fast_score_map_torch
     from gfplslam_torch.ops.hamming import hamming_cuda, hamming_matrix_torch
     from gfplslam_torch.utils import kernel_bench as kb
 
@@ -206,13 +244,7 @@ def phase_kernels(dev):
 
     # device times at the shapes one full-width frame gives each kernel
     lib = kernels.load()
-    thr = torch.tensor([kb.MAIN_THRESHOLD], device=dev)
-    fast_ms = kb.fast_device_ms(lib, main_fast, thr)
-    fast_host = statistics.median(kb.host_ms(lambda: fast_score_cuda(x, thr))
-                                  for x in main_fast.values())
-    plain_fast_ms = sum(kb.graph_ms([lambda: fast_score_map_torch(x, thr)] * 10)
-                        for x in main_fast.values())
-    fast_bound_ms, fast_by = kb.fast_bound(main_fast)
+    fast = _fast_times(main_fast)
     main_ham = kb.hamming_main_inputs(dev, rng)
     ham_ms = kb.hamming_device_ms(lib, main_ham)
     ham_host = statistics.median(kb.host_ms(lambda: hamming_cuda(*args))
@@ -228,29 +260,100 @@ def phase_kernels(dev):
           f"{', '.join(f'{a.shape[0]}x{b.shape[0]}' for a, b, _, _ in main_kf.values())}): "
           f"device {1e3 * kf_ms:.3f} us, bytes bound {1e3 * kf_bound_ms:.3f} us, "
           f"share of bound {kf_bound_ms / kf_ms:.3f}; plain {kf_plain_ms:.5f} ms")
-    for name, dev_ms, bound_ms, by, plain_ms, host in (
-            ("FAST", fast_ms, fast_bound_ms, fast_by, plain_fast_ms, fast_host),
-            ("Hamming", ham_ms, ham_bound_ms, ham_by, plain_ham_ms, ham_host)):
-        print(f"[kernels] {name} per full-width frame: device {dev_ms:.5f} ms, "
-              f"bound {bound_ms:.5f} ms ({by}), share of bound "
-              f"{bound_ms / dev_ms:.3f}; plain {plain_ms:.5f} ms; wrapper host "
-              f"{host:.5f} ms per call")
+    library = _hamming_library(lib, main_ham, main_kf)
+    _print_times("FAST per EuRoC frame", fast)
+    _print_times("Hamming per full-width frame", dict(
+        ms=ham_ms, bound_ms=ham_bound_ms, bound_by=ham_by, plain_ms=plain_ham_ms,
+        host_ms=ham_host))
     return [
-        {"name": "fast9_score", "route": "cuda",
-         "source": "gfplslam_torch/csrc/fast_score.cu",
-         "replaces": "gfplslam_tpu/ops/pallas/fast_pl.py:41",
-         "max_abs_err": fast_err, "ms": fast_ms, "host_ms": fast_host,
-         "plain_ms": plain_fast_ms, "bound_ms": fast_bound_ms,
-         "bound_by": fast_by, "library_ms": None},
+        # the EuRoC frame's times until the KITTI phase puts its own here
+        dict({"name": "fast9_score", "route": "cuda",
+              "source": "gfplslam_torch/csrc/fast_score.cu",
+              "replaces": "gfplslam_tpu/ops/pallas/fast_pl.py:41",
+              "max_abs_err": fast_err, "library_ms": None}, **fast),
         {"name": "hamming_matrix", "route": "cuda",
          "source": "gfplslam_torch/csrc/hamming.cu",
          "replaces": "gfplslam_tpu/ops/pallas/hamming_pl.py:28",
+         # capacity-bound: a frame's shapes are the same at every width
+         "frame_shapes": [f"{n}x{n}" for n in kb.HAMMING_SHAPES] * 2,
          "max_abs_err": float(ham_err), "ms": ham_ms, "host_ms": ham_host,
          "plain_ms": plain_ham_ms, "bound_ms": ham_bound_ms,
-         "bound_by": ham_by, "library_ms": None, "ms_per_keyframe": kf_ms,
+         "bound_by": ham_by, "library_ms": library["frame_ms"],
+         "library_call": library["call"], "ms_per_keyframe": kf_ms,
          "plain_ms_per_keyframe": kf_plain_ms,
-         "bound_ms_per_keyframe": kf_bound_ms},
+         "bound_ms_per_keyframe": kf_bound_ms,
+         "library_ms_per_keyframe": library["keyframe_ms"],
+         "library_ms_by_shape": library["by_shape"]},
     ]
+
+
+def _fast_times(inputs: dict) -> dict:
+    """One frame's FAST launches at MAIN_THRESHOLD: device time, bound,
+    plain version's device time, wrapper host time per call."""
+    import torch
+    from gfplslam_torch.ops import kernels
+    from gfplslam_torch.ops.fast import fast_score_cuda, fast_score_map_torch
+    from gfplslam_torch.utils import kernel_bench as kb
+    x0 = next(iter(inputs.values()))
+    thr = torch.tensor([kb.MAIN_THRESHOLD], device=x0.device)
+    bound_ms, by = kb.fast_bound(inputs)
+    return {"frame_shapes": [list(x.shape) for x in inputs.values()],
+            "ms": kb.fast_device_ms(kernels.load(), inputs, thr),
+            "host_ms": statistics.median(kb.host_ms(lambda: fast_score_cuda(x, thr))
+                                         for x in inputs.values()),
+            "plain_ms": sum(kb.graph_ms([lambda: fast_score_map_torch(x, thr)] * 10)
+                            for x in inputs.values()),
+            "bound_ms": bound_ms, "bound_by": by}
+
+
+def _print_times(label: str, t: dict) -> None:
+    print(f"[kernels] {label}: device {t['ms']:.5f} ms, bound "
+          f"{t['bound_ms']:.5f} ms ({t['bound_by']}), share of bound "
+          f"{t['bound_ms'] / t['ms']:.3f}; plain {t['plain_ms']:.5f} ms; wrapper "
+          f"host {t['host_ms']:.5f} ms per call")
+
+
+def _hamming_library(lib, main_ham, main_kf) -> dict:
+    """The single PyTorch calls that compute the Hamming kernel's function
+    (``kernel_bench.HAMMING_LIBRARY``: unpack, the call, one ``torch.where``
+    for the masks), each held equal to the kernel at the frame's and the
+    keyframe's shapes, then timed there beside the kernel, shape by shape.
+    Returns the faster call's times."""
+    import torch
+    from gfplslam_torch.ops.hamming import hamming_cuda
+    from gfplslam_torch.utils import kernel_bench as kb
+    shapes = {f"frame {n}x{n}": args for n, args in main_ham.items()}
+    shapes.update({f"keyframe {label}": args for label, args in main_kf.items()})
+    for label, args in shapes.items():
+        want = hamming_cuda(*args)
+        for call, fn in kb.HAMMING_LIBRARY.items():
+            if not torch.equal(fn(*args), want):
+                _fail(f"{call} != the Hamming kernel at {label}")
+    print(f"[kernels] Hamming library calls {list(kb.HAMMING_LIBRARY)}: equal "
+          f"to the kernel (torch.equal) at {len(shapes)} shapes")
+    times = {}
+    by_shape = {}
+    for label, args in shapes.items():
+        kernel = kb.hamming_launches_ms(lib, {label: args})
+        row = {call: kb.library_ms(fn, {label: args})
+               for call, fn in kb.HAMMING_LIBRARY.items()}
+        by_shape[label] = dict(row, kernel=kernel)
+        print(f"[kernels] Hamming {label}: kernel {kernel:.5f} ms; " + "; ".join(
+            f"{call} {ms:.5f} ms ({ms / kernel:.2f}x the kernel)"
+            for call, ms in row.items()))
+        for call, ms in row.items():
+            times.setdefault(call, {"frame": 0.0, "keyframe": 0.0})
+            # the frame's four matrices are its two shapes twice
+            if label.startswith("frame"):
+                times[call]["frame"] += 2 * ms
+            else:
+                times[call]["keyframe"] += ms
+    best = min(times, key=lambda c: times[c]["frame"] + times[c]["keyframe"])
+    for call, t in times.items():
+        print(f"[kernels] Hamming library {call}: {t['frame']:.5f} ms per frame, "
+              f"{t['keyframe']:.5f} ms per keyframe")
+    return {"call": best, "frame_ms": times[best]["frame"],
+            "keyframe_ms": times[best]["keyframe"], "by_shape": by_shape}
 
 
 def _lost(accepted: np.ndarray, max_loss: int) -> bool:
@@ -314,7 +417,7 @@ def phase_full_vo(dev, records):
     n = 48
     world = synthetic.make_world(n_frames=n, n_points=900, n_lines=90, seed=3,
                                  cam=cfg.camera)
-    frames = [synthetic.render_frame(world, i, noise=1.5) for i in range(n)]
+    frames = _render(world, n, noise=1.5)
 
     imgs_l = torch.as_tensor(u8(np.stack([f[0] for f in frames])), device=dev)
     imgs_r = torch.as_tensor(u8(np.stack([f[1] for f in frames])), device=dev)
@@ -445,7 +548,7 @@ def phase_full_slam(dev, records):
     n, chunk = 121, 24
     world = synthetic.make_world(n_frames=n, n_points=900, n_lines=90, seed=11,
                                  motion="circuit", cam=cfg.camera, textured=True)
-    frames = [synthetic.render_frame(world, i, noise=1.0) for i in range(n)]
+    frames = _render(world, n, noise=1.0)
     imgs_l = u8(np.stack([f[0] for f in frames]))
     imgs_r = u8(np.stack([f[1] for f in frames]))
 
@@ -492,7 +595,6 @@ def phase_full_slam(dev, records):
             _fail(f"full SLAM ({tag}) lost or launch counts {launches} != {expected}")
         out[lc] = dict(ate=ate, closures=closures, launches=launches)
     for r in records:
-        r["launches"] = out[True]["launches"][r["name"]]
         r["launches_by_path"]["full_slam_lc"] = out[True]["launches"][r["name"]]
         r["launches_by_path"]["full_slam_no_lc"] = out[False]["launches"][r["name"]]
 
@@ -513,19 +615,306 @@ def phase_full_slam(dev, records):
               "closure below ATE without)")
 
 
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def _write_pgm(path: Path, img: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        f.write(b"P5\n%d %d\n255\n" % (img.shape[1], img.shape[0]))
+        f.write(np.ascontiguousarray(img, np.uint8).tobytes())
+
+
+def _write_kitti_sequence(root: Path, world) -> np.ndarray:
+    """A KITTI odometry directory: image_0/ and image_1/ as binary PGM (the
+    native loader decodes P5 on any build; PNG needs libpng's headers),
+    times.txt and poses.txt (3x4 rows). Returns frame 0 (uint8 [2, H, W])."""
+    from gfplslam_torch.utils.kernel_bench import u8
+    shutil.rmtree(root, ignore_errors=True)
+    for cam in ("image_0", "image_1"):
+        (root / cam).mkdir(parents=True)
+    pairs = [u8(np.stack(f)) for f in _render(world, len(world.poses), noise=1.0)]
+    for i, (img_l, img_r) in enumerate(pairs):
+        _write_pgm(root / "image_0" / f"{i:06d}.pgm", img_l)
+        _write_pgm(root / "image_1" / f"{i:06d}.pgm", img_r)
+    np.savetxt(root / "times.txt", world.timestamps, fmt="%.6f")
+    np.savetxt(root / "poses.txt", world.poses[:, :3, :].reshape(-1, 12), fmt="%.9f")
+    return pairs[0]
+
+
+def _equal_states(a, b, label: str) -> int:
+    import torch
+    for name, x, y in zip(a._fields, a, b):
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            _fail(f"checkpoint round trip: {label}.{name} differs")
+    return len(a._fields)
+
+
+def phase_kitti_run_slam(dev, name, records, n: int = 61):
+    """Acceptance config 3's world at KITTI 00's width through the user's
+    entry point: PGM files on disk -> native loader -> apps/run_slam.py
+    (default Config and capacities, loop closure and async mapping on,
+    --chunk 20), then a checkpoint round trip of the system it ran, and the
+    FAST kernel at the shapes this width gives it (frame 0's pyramid):
+    exact at every threshold, then timed, into the kernel's record."""
+    import torch
+    from gfplslam_torch.apps import run_slam
+    from gfplslam_torch.config import Config
+    from gfplslam_torch.io import synthetic
+    from gfplslam_torch.io.datasets import KITTI_CALIB, load_kitti
+    from gfplslam_torch.models.slam import SLAMSystem
+    from gfplslam_torch.utils import kernel_bench as kb
+    from gfplslam_torch.utils.timing import FIELDS
+    from gfplslam_torch.utils.trajectory import read_tum
+
+    cam = KITTI_CALIB["00"]
+    world = synthetic.make_world(n, n_points=900, n_lines=90, seed=3,
+                                 motion="forward", cam=cam, textured=True)
+    out = HERE / "build" / "chip_smoke"
+    t0 = time.perf_counter()
+    pair0 = _write_kitti_sequence(KITTI_DIR, world)
+    print(f"[kitti-run-slam] wrote {n} PGM pairs {cam.width}x{cam.height} to "
+          f"{KITTI_DIR.relative_to(HERE)} in {time.perf_counter() - t0:.2f} s")
+    prefix = str(out / "kitti_00")
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    summary, engine = run_slam.run(["--kitti", str(KITTI_DIR), "-o", prefix,
+                                    "--chunk", "20"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _counts()
+    frames, n_kf = summary["frames"], summary["keyframes"]
+    closures = summary["loop_closures"]
+    print(f"[kitti-run-slam] summary {json.dumps(summary)}")
+    print(f"[kitti-run-slam] {cam.width}x{cam.height} x{frames}, chunk 20, "
+          f"device {name} ({_smi()}): {secs:.4f} s = {frames / secs:.4f} frames/s "
+          f"(host clock, native loader and outputs included)")
+    path = float(np.linalg.norm(np.diff(world.poses[:, :3, 3], axis=0), axis=1).sum())
+    expected = {"fast9_score": 2 * frames,
+                "hamming_matrix": 2 + 4 * (frames - 1) + 2 + 6 * (n_kf - 1)
+                + 2 * closures}
+    print(f"[kitti-run-slam] ATE {summary.get('ate_rmse')} m of path {path:.4f} m; "
+          f"launches {launches} (expected {expected})")
+    if summary["lost"] or n_kf < 2 or frames != n:
+        _fail(f"KITTI run lost, < 2 keyframes or short: {summary}")
+    if not summary.get("ate_rmse", np.inf) < 0.05 * path:
+        _fail(f"KITTI run ATE {summary.get('ate_rmse')} not below 5% of {path}")
+    if launches != expected:
+        _fail(f"KITTI run launch counts {launches} != {expected}")
+    ts_all, _ = read_tum(prefix + "_AllFrameTrajectory.txt")
+    ts_kf, _ = read_tum(prefix + "_KeyFrameTrajectory.txt")
+    log = np.loadtxt(prefix + "_Log.txt", ndmin=2)
+    gt_ts = load_kitti(str(KITTI_DIR)).timestamps
+    if (len(ts_all) != frames or len(ts_kf) != n_kf or log.shape != (frames, len(FIELDS))
+            or not np.allclose(ts_all, gt_ts[:frames], atol=1e-6)):
+        _fail(f"KITTI outputs: {len(ts_all)} frame rows, {len(ts_kf)} keyframe rows, "
+              f"log {log.shape}; want {frames}, {n_kf}, ({frames}, {len(FIELDS)})")
+    for r in records:
+        # this slice's main path: the user's entry point at KITTI width
+        r["launches"] = launches[r["name"]]
+        r["launches_by_path"]["kitti_run_slam"] = launches[r["name"]]
+
+    ckpt = str(out / "kitti_00_slam.npz")
+    engine.save(ckpt)
+    fresh = SLAMSystem(engine.cfg, device=dev)
+    fresh.load(ckpt)
+    fields = (_equal_states(fresh.map, engine.map, "map")
+              + _equal_states(fresh.loop_state, engine.loop_state, "loop")
+              + _equal_states(fresh.vo.state, engine._scan_carry[0], "tracker"))
+    print(f"[kitti-run-slam] checkpoint {Path(ckpt).relative_to(HERE)} "
+          f"({Path(ckpt).stat().st_size} bytes): {fields} map/loop/tracker fields "
+          f"equal after save + load into a fresh system; n_kf {fresh._n_kf_host}")
+
+    # the FAST kernel at this path's shapes: its record's times are this
+    # frame's, beside this run's launches (the EuRoC frame's stay as "euroc")
+    kitti_fast = kb.fast_pyramid_inputs(pair0, Config(camera=cam), dev)
+    err = max(_check_fast(f"KITTI frame 0 {label}", x, True)
+              for label, x in kitti_fast.items())
+    times = _fast_times(kitti_fast)
+    _print_times(f"FAST per KITTI frame {times['frame_shapes']}", times)
+    fast = next(r for r in records if r["name"] == "fast9_score")
+    fast["euroc"] = {k: fast[k] for k in times}
+    fast.update(times, max_abs_err=max(fast["max_abs_err"], err),
+                exact_at_kitti_shapes=times["frame_shapes"])
+
+
+def phase_timed_vo(dev, name, records, n_kitti: int = 20):
+    """``run_slam --synthetic --timing --vo-only --frames 8`` (TimedVO, one
+    synchronized call per reference stage) against VisualOdometry on the
+    same frames: trajectories equal, every stage timed. Then the same mode
+    on the first ``n_kitti`` frames of the KITTI sequence: where a frame's
+    time goes at 1241x376."""
+    from gfplslam_torch.apps import run_slam
+    from gfplslam_torch.io import synthetic
+    from gfplslam_torch.models.vo import VisualOdometry
+    from gfplslam_torch.utils.timing import FIELDS
+
+    times = [f for f in FIELDS if f.startswith("time")]
+
+    def stage_ms(timed):
+        rows = timed.timelog.rows[1:]
+        if not all(getattr(r, f) > 0 for r in rows for f in times):
+            _fail("a time_* field of a tracked frame is not > 0")
+        # time_track is the frame's total: the sum of the other nine
+        return {f: round(1e3 * statistics.median(getattr(r, f) for r in rows), 4)
+                for f in times}
+
+    out = HERE / "build" / "chip_smoke"
+    _reset_counts()
+    _, timed = run_slam.run(["--synthetic", "--timing", "--vo-only", "--frames", "8",
+                             "-o", str(out / "timed_vo")])
+    launches = _counts()
+    world = synthetic.make_world(n_frames=8, seed=0)
+    plain = VisualOdometry(timed.cfg, device=dev)
+    for i in range(8):
+        plain.process(*synthetic.render_frame(world, i), world.timestamps[i])
+    if not np.array_equal(timed.trajectory, plain.trajectory):
+        _fail("TimedVO trajectory != VisualOdometry's on the same frames: max "
+              f"{np.abs(timed.trajectory - plain.trajectory).max()}")
+    if min(launches.values()) < 1:
+        _fail(f"timed VO launched a kernel no time: {launches}")
+    for r in records:
+        r["launches_by_path"]["timed_vo"] = launches[r["name"]]
+    med = stage_ms(timed)
+    print(f"[timed-vo] {timed.cfg.camera.width}x{timed.cfg.camera.height} x8, "
+          f"default capacities: trajectory equal to VisualOdometry's; median ms "
+          f"per tracked frame {med['time_track']}, by stage {json.dumps(med)}; launches "
+          f"{launches}; device {name} ({_smi()})")
+
+    summary, timed = run_slam.run(["--kitti", str(KITTI_DIR), "--timing", "--vo-only",
+                                   "-n", str(n_kitti), "-o", str(out / "timed_kitti")])
+    if summary["lost"] or summary["frames"] != n_kitti:
+        _fail(f"timed KITTI VO lost or short: {summary}")
+    med = stage_ms(timed)
+    print(f"[timed-vo] KITTI {timed.cfg.camera.width}x{timed.cfg.camera.height} "
+          f"x{n_kitti}, default Config, native loader: median ms per tracked "
+          f"frame {med['time_track']}, by stage {json.dumps(med)}; device {name} ({_smi()})")
+
+
+def phase_vocab(dev, name, records, n_desc: int = 20000):
+    """``train_vocab``'s shapes: the Hamming kernel exact at [8192, 4096] and
+    [1000, 4096] unmasked, and k-majority on the card equal to the CPU."""
+    import torch
+    from gfplslam_torch.apps import train_vocab
+    from gfplslam_torch.ops import kernels
+    from gfplslam_torch.ops.hamming import hamming_cuda, hamming_matrix
+    from gfplslam_torch.utils import kernel_bench as kb
+
+    rng = np.random.default_rng(7)
+    words = torch.as_tensor(rng.integers(-2**31, 2**31, (4096, 8)),
+                            dtype=torch.int32, device=dev)
+    blocks = {}
+    for n in (8192, 1000):
+        blocks[n] = torch.as_tensor(rng.integers(-2**31, 2**31, (n, 8)),
+                                    dtype=torch.int32, device=dev)
+        _check_hamming(f"train_vocab {n}x4096 unmasked", blocks[n], words, None, None)
+    for r in records:
+        if r["name"] == "hamming_matrix":
+            r["exact_at_train_vocab_shapes"] = ["8192x4096", "1000x4096"]
+    lib = kernels.load()
+    block = {8192: (blocks[8192], words, None, None)}
+    kern = kb.hamming_launches_ms(lib, block)
+    step = kb.graph_ms([lambda: torch.argmin(hamming_matrix(blocks[8192], words),
+                                             dim=1)] * 10)
+    bound = kb.hamming_bytes_ms(block)
+    print(f"[vocab] one assignment block 8192x4096: Hamming kernel {kern:.5f} ms "
+          f"(bytes bound {bound:.5f} ms, share {bound / kern:.3f}), with the "
+          f"argmin {step:.5f} ms; device {name} ({_smi()})")
+
+    desc = rng.integers(0, 2**32, size=(n_desc, 8), dtype=np.uint32)
+    _reset_counts()
+    t0 = time.perf_counter()
+    got = train_vocab.kmajority(desc, 4096, iters=5, device=dev)
+    secs = time.perf_counter() - t0
+    launches = _counts()
+    t0 = time.perf_counter()
+    want = train_vocab.kmajority(desc, 4096, iters=5, device="cpu")
+    cpu_secs = time.perf_counter() - t0
+    if not np.array_equal(got, want):
+        _fail(f"k-majority on the card != on the CPU: "
+              f"{int((got != want).any(1).sum())} of 4096 centers differ")
+    per_iter = -(-n_desc // train_vocab.ASSIGN_BLOCK)
+    if launches["hamming_matrix"] % per_iter or not launches["hamming_matrix"]:
+        _fail(f"k-majority Hamming launches {launches} not a multiple of {per_iter}")
+    for r in records:
+        r["launches_by_path"]["vocab_kmajority"] = launches[r["name"]]
+    print(f"[vocab] k-majority N={n_desc} k=4096, at most 5 iterations "
+          f"({launches['hamming_matrix'] // per_iter} run before the centers "
+          f"settled): centers equal to the CPU run; card {secs:.3f} s, CPU "
+          f"{cpu_secs:.3f} s (host clocks); Hamming launches "
+          f"{launches['hamming_matrix']} ({per_iter} per iteration)")
+
+
+def phase_rectify(dev):
+    """A two-frame EuRoC tree of raw PGM frames through ``load_euroc`` (the
+    EuRoC calibration's rectification maps) and the native loader, each
+    frame also rectified by ``rectify_pair`` on the card and on the CPU."""
+    import torch
+    from gfplslam_torch.io import native_loader
+    from gfplslam_torch.io.datasets import load_euroc
+    from gfplslam_torch.ops.camera import rectify_pair
+    root = HERE / "build" / "chip_smoke" / "euroc"
+    shutil.rmtree(root, ignore_errors=True)
+    raw = np.random.default_rng(11).integers(0, 256, (2, 2, 480, 752)).astype(np.uint8)
+    for c in range(2):
+        data = root / "mav0" / f"cam{c}" / "data"
+        data.mkdir(parents=True)
+        for i in range(len(raw)):
+            _write_pgm(data / f"{1403636579763555584 + 50_000_000 * i}.pgm", raw[i, c])
+    seq = load_euroc(str(root))
+    maps = seq.maps
+    err_card = err_loader = 0.0
+    with native_loader.StereoLoader(
+            seq.paths_l, seq.paths_r, maps.cam.width, maps.cam.height,
+            maps=(maps.map_x_l, maps.map_y_l, maps.map_x_r, maps.map_y_r)) as loader:
+        done = 0
+        for k, img_l, img_r in loader:
+            imgs = torch.as_tensor(raw[k], dtype=torch.float32)
+            want = rectify_pair(imgs, maps)
+            got = rectify_pair(imgs.to(dev), maps).cpu()
+            err_card = max(err_card, float((got - want).abs().max()))
+            err_loader = max(err_loader, float(
+                (torch.as_tensor(np.stack([img_l, img_r])) - got).abs().max()))
+            done += 1
+    print(f"[rectify] EuRoC calibration, {done} raw PGM pairs 752x480: rectify_pair on "
+          f"the card vs the CPU max abs difference {err_card}; the native loader "
+          f"(formats {sorted(native_loader.formats())}) vs the card {err_loader} "
+          f"(limit 1e-3 on 0-255 images)")
+    if done != len(raw) or not (err_card <= 1e-3 and err_loader <= 1e-3):
+        _fail(f"rectification: {done} frames, card vs CPU {err_card}, "
+              f"loader vs card {err_loader}")
+
+
+def _run(phase: str, fn, *args):
+    """Run one phase; on any failure name it on stderr, then let it end the
+    script (the exit code stays non-zero)."""
+    try:
+        return fn(*args)
+    except BaseException:
+        print(f"chip_smoke: phase [{phase}] failed", file=sys.stderr)
+        raise
+
+
 def main() -> None:
     if not (HERE / "gfplslam_torch" / "__init__.py").is_file():
         _fail(f"no gfplslam_torch package beside {Path(__file__).name}; run "
               "it from the root of a checkout")
     sys.path.insert(0, str(HERE))
-    dev, name = phase_device()
+    dev, name = _run("device", phase_device)
     import torch
-    phase_build()
-    records = phase_kernels(dev)
-    phase_small_vo(dev)
-    phase_full_vo(dev, records)
-    phase_small_slam(dev, records)
-    phase_full_slam(dev, records)
+    _run("build", phase_build)
+    records = _run("kernels", phase_kernels, dev)
+    _run("small-vo", phase_small_vo, dev)
+    _run("full-vo", phase_full_vo, dev, records)
+    _run("small-slam", phase_small_slam, dev, records)
+    _run("full-slam", phase_full_slam, dev, records)
+    _run("kitti-run-slam", phase_kitti_run_slam, dev, name, records)
+    _run("timed-vo", phase_timed_vo, dev, name, records)
+    _run("vocab", phase_vocab, dev, name, records)
+    _run("rectify", phase_rectify, dev)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -143,20 +143,32 @@ def detect_point_features(pyr: torch.Tensor, cfg: Config, fast_th):
     return xy0, lvl, flat(angs), flat(descs), flat(score), flat(valid)
 
 
-def detect_camera_features(imgs: torch.Tensor, cfg: Config, fast_th,
-                           pyr: torch.Tensor) -> CameraFeatures:
-    """Points (all pyramid levels) + lines for a batch of camera images
-    [C, H, W]; every field has a leading [C] (stereoFrame.cpp:1019-1227)."""
-    ncam = imgs.shape[0]
-    dev = imgs.device
-    xy0, lvl, angs, descs, score, valid = detect_point_features(
-        pyr, cfg, fast_th)
+def detect_line_segments(imgs: torch.Tensor, cfg: Config):
+    """LSD-analog line detection only, for a batch of camera images
+    [C, H, W] (detectLineFeatures detection half,
+    stereoFrame.cpp:1155-1201)."""
+    return lsd_ops.detect_lines(
+        imgs, n_out=cfg.cap.n_ln, ang_th_deg=cfg.lsd.ang_th,
+        quant=cfg.lsd.quant, min_rel_length=cfg.tracking.min_line_length)
+
+
+def describe_line_segments(imgs: torch.Tensor, sp: torch.Tensor,
+                           ep: torch.Tensor) -> torch.Tensor:
+    """LBD description of detected segments, [C, Nl, 8] int32
+    (BinaryDescriptor::compute, stereoFrame.cpp:1203-1227)."""
+    desc, _ = lbd_ops.lbd_descriptors(imgs, sp, ep)
+    return desc
+
+
+def camera_features(cfg: Config, points, lines=None,
+                    ln_desc: torch.Tensor | None = None) -> CameraFeatures:
+    """Assemble :class:`CameraFeatures` from :func:`detect_point_features`'
+    tuple and, when the Config has lines, :func:`detect_line_segments`' and
+    :func:`describe_line_segments`' outputs."""
+    xy0, lvl, angs, descs, score, valid = points
+    ncam, dev = xy0.shape[0], xy0.device
     if cfg.stvo.has_lines:
-        lines = lsd_ops.detect_lines(
-            imgs, n_out=cfg.cap.n_ln, ang_th_deg=cfg.lsd.ang_th,
-            quant=cfg.lsd.quant, min_rel_length=cfg.tracking.min_line_length)
         ln_sp, ln_ep, ln_angle = lines.sp, lines.ep, lines.angle
-        ln_desc, _ = lbd_ops.lbd_descriptors(imgs, lines.sp, lines.ep)
         ln_valid = lines.valid
     else:
         # points-only operating point (Config::hasLines() false): LSD/LBD
@@ -173,6 +185,18 @@ def detect_camera_features(imgs: torch.Tensor, cfg: Config, fast_th,
         pt_xy=xy0, pt_level=lvl, pt_angle=angs, pt_desc=descs,
         pt_score=score, pt_valid=valid, ln_sp=ln_sp, ln_ep=ln_ep,
         ln_angle=ln_angle, ln_desc=ln_desc, ln_valid=ln_valid)
+
+
+def detect_camera_features(imgs: torch.Tensor, cfg: Config, fast_th,
+                           pyr: torch.Tensor) -> CameraFeatures:
+    """Points (all pyramid levels) + lines for a batch of camera images
+    [C, H, W]; every field has a leading [C] (stereoFrame.cpp:1019-1227)."""
+    points = detect_point_features(pyr, cfg, fast_th)
+    if not cfg.stvo.has_lines:
+        return camera_features(cfg, points)
+    lines = detect_line_segments(imgs, cfg)
+    return camera_features(cfg, points, lines,
+                           describe_line_segments(imgs, lines.sp, lines.ep))
 
 
 def _subpixel_refine(pyr_l: torch.Tensor, pyr_r: torch.Tensor,

@@ -27,8 +27,11 @@ from gfplslam_torch.models import ba as ba_ops
 from gfplslam_torch.models import loop as loop_ops
 from gfplslam_torch.models import map as map_ops
 from gfplslam_torch.models import mapping
+from gfplslam_torch.models import tracker as trk
 from gfplslam_torch.models import vo as vo_mod
 from gfplslam_torch.models.vo import VisualOdometry
+from gfplslam_torch.utils import checkpoint
+from gfplslam_torch.utils.timing import TimeLog
 
 CUDA = torch.device("cuda")
 LC_IDLE, LC_ACTIVE, LC_READY = 0, 1, 2
@@ -177,6 +180,7 @@ class SLAMSystem:
             self.vo.records.append(vo_mod.FrameRecord(
                 float(timestamps[0]), np.eye(4), True, 0, 0, True,
                 base_kf=0, t_rel_base=np.eye(4)))
+            self.vo.timelog.append(TimeLog())
             self.vo.frame_idx += 1
             self.vo.kf_count = 1
             start = 1
@@ -233,6 +237,10 @@ class SLAMSystem:
             self.vo.records.append(vo_mod.FrameRecord(
                 ts_j, t_abs, bool(is_kf), int(packed[j, 3]), int(packed[j, 4]),
                 bool(accepted), base_kf=base_kf, t_rel_base=t_rel_base))
+            # a queued scan has no per-frame stage boundaries: the row holds
+            # the frame's inlier counts and no times
+            self.vo.timelog.append(TimeLog(num_pt_cross=int(packed[j, 3]),
+                                           num_ln_cross=int(packed[j, 4])))
             self.vo.frame_idx += 1
         if lc_queue:
             # ONE device tensor for the chunk's LC decisions, read at the next
@@ -428,6 +436,28 @@ class SLAMSystem:
             # post-BA outlier-observation deletion (mapHandler.cpp:1714-1836)
             self.map = map_ops.apply_ba_outliers(self.cfg, self.map, res,
                                                  po_src, lo_src)
+
+    def save(self, path: str) -> None:
+        """Checkpoint the full map + loop + tracker state in the reference's
+        npz layout (``utils/checkpoint.py``). After the streaming driver the
+        live tracker state is the scan carry's (``vo.state`` is the
+        per-frame driver's), and that is the one written."""
+        tracker = (self.vo.state if self._scan_carry is None
+                   else self._scan_carry[0])
+        checkpoint.save_state(path, map=self.map, loop=self.loop_state,
+                              tracker=tracker)
+
+    def load(self, path: str) -> None:
+        """Restore a checkpoint written by :meth:`save` or by the
+        reference's ``SLAMSystem.save``."""
+        out = checkpoint.load_state(
+            path, self.device, map=map_ops.empty_map(self.cfg, self.device),
+            loop=loop_ops.empty_loop_state(self.cfg, self.device),
+            tracker=trk.initial_state(self.cfg, self.device))
+        self.map = out["map"]
+        self.loop_state = out["loop"]
+        self.vo.state = out["tracker"]
+        self._n_kf_host = int(self.map.n_kf)
 
     @property
     def keyframe_trajectory(self) -> np.ndarray:

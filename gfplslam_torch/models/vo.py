@@ -165,6 +165,30 @@ class VisualOdometry:
         ride the optimized map, plslam_mod.cpp:471-477)."""
         self.t_base_w = np.asarray(t_base_w, np.float64).copy()
 
+    def _frontend(self, img_l, img_r, log: TimeLog, timer: StageTimer,
+                  fast_th=None) -> StereoFrame:
+        """Front-end hook: the whole front-end queued on the device with no
+        host read (the frame's host-visible scalars come back in one read at
+        the end of :meth:`process`). ``TimedVO`` overrides it with one
+        synchronized call per reference TimeLog stage. ``fast_th``
+        overrides the adaptive threshold (the frame-0 bootstrap passes the
+        FAST floor)."""
+        dev = torch.device(self.device)
+        th = self.state.fast_th if fast_th is None else fast_th
+        frame = process_stereo_pair(_as_device(img_l, dev),
+                                    _as_device(img_r, dev), self.cfg, th)
+        log.time_pt_extract = timer.lap()
+        return frame
+
+    def _track(self, frame: StereoFrame, delta_t: float, log: TimeLog,
+               timer: StageTimer) -> trk.TrackOutput:
+        """Tracking hook: one ``track_step``, queued with no host read."""
+        out = trk.track_step(self.cfg, self.state, self.prev_frame, frame,
+                             _as_device(delta_t, torch.device(self.device),
+                                        torch.float32))
+        log.time_pose_optim = timer.lap()
+        return out
+
     def process(self, img_l: np.ndarray, img_r: np.ndarray,
                 timestamp: float) -> FrameRecord:
         """One camera frame. Returns this frame's record."""
@@ -174,11 +198,10 @@ class VisualOdometry:
         if self.state is None:
             self.state = trk.initial_state(self.cfg, dev)
         # frame 0 detects at the FAST floor
-        th = (_as_device(float(self.cfg.tracking.fast_min_th), dev, torch.float32)
-              if self.prev_frame is None else self.state.fast_th)
-        frame = process_stereo_pair(_as_device(img_l, dev),
-                                    _as_device(img_r, dev), self.cfg, th)
-        log.time_pt_extract = timer.lap()
+        boot_th = (_as_device(float(self.cfg.tracking.fast_min_th), dev,
+                              torch.float32)
+                   if self.prev_frame is None else None)
+        frame = self._frontend(img_l, img_r, log, timer, fast_th=boot_th)
 
         if self.prev_frame is None:
             n_pt0, n_ln0 = torch.stack([frame.points.valid.sum(),
@@ -197,9 +220,7 @@ class VisualOdometry:
             return rec
 
         delta_t = max(timestamp - self.prev_time, 1e-3)
-        out = trk.track_step(self.cfg, self.state, self.prev_frame, frame,
-                             _as_device(delta_t, dev, torch.float32))
-        log.time_pose_optim = timer.lap()
+        out = self._track(frame, delta_t, log, timer)
         # every host-visible scalar of the frame in ONE device->host read
         packed = torch.cat([
             torch.stack([frame.points.valid.sum(), frame.lines.valid.sum(),
@@ -213,7 +234,10 @@ class VisualOdometry:
         log.num_ln_stereo = int(n_ln_st)
         log.num_pt_cross = int(n_pt_x)
         log.num_ln_cross = int(n_ln_x)
-        log.time_track = log.time_pt_extract + log.time_pose_optim
+        log.time_track = sum(getattr(log, f) for f in (
+            "time_pt_extract", "time_ln_detect", "time_ln_descri",
+            "time_pt_stereo", "time_ln_stereo", "time_pt_cross",
+            "time_ln_cross", "time_ln_cut", "time_pose_optim"))
 
         self.state = out.state
         if need_kf:

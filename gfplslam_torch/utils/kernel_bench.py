@@ -13,6 +13,10 @@ needs a CUDA card; the input builders and the bounds also run on the CPU.
   take for one full-width frame's work, the larger of the bytes over the
   HBM rate and the operations these inputs need over the issue rate of
   their type (H100 SXM, NVIDIA's data sheet).
+- :data:`HAMMING_LIBRARY`: single PyTorch calls that compute the Hamming
+  kernel's function from the descriptors unpacked to bits (``torch.cdist``
+  with p=0, and a +-1 bf16 matrix product), timed beside the kernel as its
+  yardstick; the port never calls them.
 """
 
 from __future__ import annotations
@@ -52,6 +56,62 @@ HAMMING_KEYFRAME = (("map points", 1024, 16384, "both"),
                     ("BoW lines", 512, 4096, "rows"),
                     ("verify points", 512, 512, "both"),
                     ("verify lines", 256, 256, "both"))
+
+
+def unpack_bits(desc: torch.Tensor) -> torch.Tensor:
+    """[N, 8] int32 descriptor words -> [N, 256] bits (0/1, int32), bit j of
+    word w at column 32 w + j."""
+    shifts = torch.arange(32, dtype=torch.int32, device=desc.device)
+    return ((desc[:, :, None] >> shifts) & 1).reshape(desc.shape[0], 256)
+
+
+def _mask(d: torch.Tensor, va, vb) -> torch.Tensor:
+    """The kernel's masking in one ``torch.where``: BIG where a row or a
+    column is invalid."""
+    from gfplslam_torch.ops.hamming import BIG
+    if va is None and vb is None:
+        return d
+    ok = (torch.ones_like(d, dtype=torch.bool) if va is None else va[:, None]) & (
+        True if vb is None else vb[None, :])
+    return torch.where(ok, d, BIG)
+
+
+def hamming_by_cdist(a, b, va=None, vb=None) -> torch.Tensor:
+    """``torch.cdist(p=0)`` on the float bits counts the differing bits."""
+    d = torch.cdist(unpack_bits(a).float(), unpack_bits(b).float(), p=0)
+    return _mask(d.to(torch.int32), va, vb)
+
+
+def hamming_by_matmul(a, b, va=None, vb=None) -> torch.Tensor:
+    """(256 - A.B^T) / 2 for the +-1 bit matrices: bf16 inputs, fp32
+    accumulation. Every partial sum is an integer of magnitude <= 256, so
+    even a bf16 accumulator would hold it exactly."""
+    sa = (1 - 2 * unpack_bits(a)).to(torch.bfloat16)
+    sb = (1 - 2 * unpack_bits(b)).to(torch.bfloat16)
+    dot = torch.matmul(sa, sb.T)
+    return _mask(((256 - dot.float()) * 0.5).to(torch.int32), va, vb)
+
+
+HAMMING_LIBRARY = {"torch.cdist(p=0)": hamming_by_cdist,
+                   "bf16 +-1 torch.matmul": hamming_by_matmul}
+
+
+def library_ms(fn, inputs: dict) -> float:
+    """Device time of one ``fn`` call per entry of ``inputs``, unpack and
+    mask included, under the kernel's memory conditions
+    (``hamming_launch_list``): the same inputs, and the outputs kept in as
+    many rotating slots as the kernel has output buffers, so that they
+    leave the L2 cache as the kernel's do."""
+    total = 0.0
+    for args in inputs.values():
+        copies, count = rotation(4.0 * args[0].shape[0] * args[1].shape[0])
+        slots = [None] * copies
+
+        def call(i):
+            slots[i % copies] = fn(*args)
+        total += graph_ms([functools.partial(call, i) for i in range(count)])
+        slots.clear()
+    return total
 
 
 def u8(imgs):
@@ -139,24 +199,32 @@ def hamming_launch_list(lib, a, b, va, vb):
     return [functools.partial(launch, outs[i % copies]) for i in range(count)]
 
 
+def fast_pyramid_inputs(pair, cfg, dev) -> dict:
+    """What one stereo pair (uint8 [2, H, W]) feeds the FAST kernel under
+    ``cfg``: its padded pyramid, level 0 and levels 1-3 as ``frame.py``
+    batches them (non-integer intensities from level 1 on), labelled with
+    their shapes."""
+    from gfplslam_torch.ops.pyramid import build_pyramid_padded, level_shapes
+    imgs = torch.as_tensor(np.asarray(pair), device=dev).float()
+    nlv, scale = cfg.orb.nlevels, cfg.orb.scale_factor
+    pyr = build_pyramid_padded(imgs, nlv, scale)
+    h1, w1 = level_shapes(imgs.shape[-2], imgs.shape[-1], nlv, scale)[1]
+    level0 = pyr[:, 0].contiguous()
+    upper = pyr[:, 1:, :h1, :w1].reshape(-1, h1, w1).contiguous()
+    return {f"level 0 {list(level0.shape)}": level0,
+            f"levels 1-{nlv - 1} {list(upper.shape)}": upper}
+
+
 def fast_main_inputs(dev) -> dict:
-    """What one full-width frame feeds the FAST kernel: the rendered EuRoC
-    pair's padded pyramid, level 0 and levels 1-3 as ``frame.py`` batches
-    them (non-integer intensities from level 1 on)."""
+    """What one full-width EuRoC frame feeds the FAST kernel: the rendered
+    pair of the VO world (``fast_pyramid_inputs``)."""
     from gfplslam_torch.config import CameraParams, Config
     from gfplslam_torch.io import synthetic
-    from gfplslam_torch.ops.pyramid import build_pyramid_padded, level_shapes
     cfg = Config(camera=CameraParams())
     world = synthetic.make_world(n_frames=2, n_points=900, n_lines=90, seed=3,
                                  cam=cfg.camera)
     pair = u8(np.stack(synthetic.render_frame(world, 0, noise=1.5)))
-    imgs = torch.as_tensor(pair, device=dev).float()
-    nlv, scale = cfg.orb.nlevels, cfg.orb.scale_factor
-    pyr = build_pyramid_padded(imgs, nlv, scale)
-    h1, w1 = level_shapes(imgs.shape[-2], imgs.shape[-1], nlv, scale)[1]
-    return {"level 0 [2,480,752]": pyr[:, 0].contiguous(),
-            "levels 1-3 [6,400,627]":
-                pyr[:, 1:, :h1, :w1].reshape(-1, h1, w1).contiguous()}
+    return fast_pyramid_inputs(pair, cfg, dev)
 
 
 def hamming_main_inputs(dev, rng) -> dict:

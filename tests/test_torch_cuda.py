@@ -17,7 +17,7 @@ from gfplslam_torch.config import CameraParams, Config
 from gfplslam_torch.io import synthetic
 from gfplslam_torch.ops import fast, hamming
 from gfplslam_torch.ops.pyramid import build_pyramid_padded, level_shapes
-from gfplslam_torch.utils.kernel_bench import HAMMING_KEYFRAME
+from gfplslam_torch.utils.kernel_bench import HAMMING_KEYFRAME, HAMMING_LIBRARY
 
 pytestmark = pytest.mark.gpu
 
@@ -131,6 +131,84 @@ def test_hamming_kernel_at_back_end_shapes(dev, label, n, m, masks):
     out = hamming.hamming_matrix(a, b, va, vb)
     assert hamming.hamming_cuda.launches == before + 1
     assert torch.equal(out, hamming.hamming_matrix_torch(a, b, va, vb))
+
+
+@pytest.mark.parametrize("n", [8192, 1000])
+def test_hamming_kernel_at_train_vocab_shapes(dev, n):
+    """``train_vocab``'s assignment block against a 4096-word codebook,
+    unmasked as it calls the kernel: bit-exact, and each single PyTorch call
+    of ``kernel_bench.HAMMING_LIBRARY`` equal to it."""
+    rng = np.random.default_rng(n)
+    a = torch.as_tensor(rng.integers(-2**31, 2**31, (n, 8)), dtype=torch.int32, device=dev)
+    b = torch.as_tensor(rng.integers(-2**31, 2**31, (4096, 8)), dtype=torch.int32, device=dev)
+    before = hamming.hamming_cuda.launches
+    out = hamming.hamming_matrix(a, b)
+    assert hamming.hamming_cuda.launches == before + 1
+    assert torch.equal(out, hamming.hamming_matrix_torch(a, b))
+    for call, fn in HAMMING_LIBRARY.items():
+        assert torch.equal(fn(a, b), out), call
+
+
+def test_kmajority_card_equals_cpu(dev):
+    """k-majority (Hamming assignment + one-hot fp32 vote) gives the same
+    centers on the card as on the CPU."""
+    from gfplslam_torch.apps import train_vocab
+    rng = np.random.default_rng(5)
+    desc = rng.integers(0, 2**32, size=(3000, 8), dtype=np.uint32)
+    before = hamming.hamming_cuda.launches
+    got = train_vocab.kmajority(desc, 64, iters=5, device=dev)
+    assert hamming.hamming_cuda.launches > before
+    np.testing.assert_array_equal(got, train_vocab.kmajority(desc, 64, iters=5,
+                                                             device="cpu"))
+
+
+def _euroc_maps():
+    from gfplslam_torch.ops.camera import stereo_rectify
+    kl = np.array([[458.654, 0, 367.215], [0, 457.296, 248.375], [0, 0, 1]])
+    kr = np.array([[457.587, 0, 379.999], [0, 456.134, 255.238], [0, 0, 1]])
+    dl = np.array([-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0])
+    dr = np.array([-0.28368365, 0.07451284, -0.00010473, -3.55590700e-05, 0.0])
+    r = np.array([[0.999997, 0.002312, -0.000760], [-0.002317, 0.999898, -0.014090],
+                  [0.000728, 0.014091, 0.999900]])
+    return stereo_rectify(kl, dl, kr, dr, r, np.array([0.110074, -0.000156, 0.000889]),
+                          752, 480)
+
+
+def test_rectify_pair_card_against_cpu(dev):
+    """EuRoC's rectification maps applied on the card: within 1e-3 of the
+    CPU on 0-255 images (the same gathers and weights; only FMA contraction
+    may differ)."""
+    from gfplslam_torch.ops.camera import rectify_pair
+    maps = _euroc_maps()
+    raw = torch.as_tensor(np.random.default_rng(3).integers(0, 256, (2, 480, 752)),
+                          dtype=torch.float32)
+    got = rectify_pair(raw.to(dev), maps)
+    assert got.device.type == "cuda"
+    assert float((got.cpu() - rectify_pair(raw, maps)).abs().max()) <= 1e-3
+
+
+def test_native_loader_on_card_machine(dev, tmp_path):
+    """The C++ loader builds on the card's machine, decodes binary PGM
+    exactly, and its rectified frames lie within 1e-3 of ``rectify_pair``
+    on the card."""
+    from gfplslam_torch.io import native_loader
+    from gfplslam_torch.ops.camera import rectify_pair
+    rng = np.random.default_rng(9)
+    imgs = rng.integers(0, 256, (2, 480, 752)).astype(np.uint8)
+    paths = []
+    for side, img in zip("lr", imgs):
+        paths.append(str(tmp_path / f"{side}.pgm"))
+        with open(paths[-1], "wb") as f:
+            f.write(b"P5\n752 480\n255\n" + img.tobytes())
+        np.testing.assert_array_equal(native_loader.decode_image(paths[-1]), img)
+    maps = _euroc_maps()
+    with native_loader.StereoLoader(paths[:1], paths[1:], 752, 480,
+                                    maps=(maps.map_x_l, maps.map_y_l,
+                                          maps.map_x_r, maps.map_y_r)) as loader:
+        (k, left, right), = list(loader)
+    want = rectify_pair(torch.as_tensor(imgs, dtype=torch.float32, device=dev), maps)
+    assert k == 0
+    assert float((torch.as_tensor(np.stack([left, right])) - want.cpu()).abs().max()) <= 1e-3
 
 
 def _to(tree, device):
