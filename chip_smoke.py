@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's stereo VO and SLAM paths once on one CUDA card.
+"""Drive the PyTorch port's VO, SLAM, multi-process and analysis paths once
+on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -68,7 +69,23 @@ no network. Phases, each reported on its own lines:
    (20,000 descriptors, k = 4096, 5 iterations) on the card equal to the CPU;
 11. rectify: a two-frame EuRoC tree of raw PGM frames through ``load_euroc``
    and the native C++ loader, and ``rectify_pair`` on the card, each within
-   1e-3 of ``rectify_pair`` on the CPU.
+   1e-3 of ``rectify_pair`` on the CPU;
+12. dist-ba: acceptance config 5's problem (16 keyframes, 8064 points,
+   1008 lines) solved densely and by ``solve_ba_sharded`` over one NCCL
+   rank and over four gloo ranks sharing the card (ranks started by
+   ``parallel/multihost.py::launch``): poses within 5e-3 of the dense
+   solve, the same result on every rank, ms per LM iteration of each (a
+   correctness run: one card shows no scaling); then
+   ``SLAMSystem.finish(run_global_ba=True)`` over four ranks on
+   tests/test_dist.py's 80-keyframe map against the dense finish;
+13. batch-vo: ``run_vo_batch`` on 4 EuRoC worlds (752x480, default Config,
+   24 frames each) with no group and over four gloo ranks: per sequence the
+   integer outputs equal, poses within 0.08 m of each other, ATE < 5% of
+   the path, launches as the frames imply;
+14. analysis-apps: ``assess``, ``ab_orb_pattern``, ``simulate_linecut`` and
+   ``simulate_pl_loss`` through their ``run`` at the reference's defaults,
+   against the JAX package's numbers where it has them, with the kernels'
+   launches of the first two.
 
 Any failure raises, so the script exits non-zero before the last line and
 names the failing phase on stderr. The line before the last holds the
@@ -95,6 +112,10 @@ HERE = Path(__file__).resolve().parent
 KITTI_DIR = HERE / "build" / "chip_smoke" / "kitti" / "00"
 # 7.3 and 19.9 are not bf16 values: the threshold's own rounding counts
 THRESHOLDS = (7.3, 10.0, 19.9, 20.0, 35.0)
+# the JAX package's analysis apps at their defaults, on a CPU
+# (python -m gfplslam_tpu.apps.simulate_linecut / simulate_pl_loss)
+REF_LINECUT = {"mean_gap": 0.09549892693758011, "p95_gap": 0.5074923038482666}
+REF_PL_CURVATURE = 0.8244671302638089
 
 
 def _fail(msg: str) -> None:
@@ -102,13 +123,21 @@ def _fail(msg: str) -> None:
     sys.exit(1)
 
 
-def _render(world, n: int, noise: float) -> list:
-    """Frames 0..n-1 of a synthetic world, rendered on the host's cores (each
-    frame's noise is seeded by its index, so the frames equal a loop's)."""
+def _render_all(worlds, n: int, noise: float) -> list:
+    """Frames 0..n-1 of each synthetic world, rendered on the host's cores in
+    one process pool (each frame's noise is seeded by its index, so the
+    frames equal a loop's). One list of frames per world."""
     from gfplslam_torch.io import synthetic
-    workers = min(8, os.cpu_count() or 1, n)
+    workers = min(8, os.cpu_count() or 1, n * len(worlds))
     with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as ex:
-        return list(ex.map(partial(synthetic.render_frame, world, noise=noise), range(n)))
+        frames = list(ex.map(partial(synthetic.render_frame, noise=noise),
+                             [w for w in worlds for _ in range(n)],
+                             [i for _ in worlds for i in range(n)]))
+    return [frames[k * n:(k + 1) * n] for k in range(len(worlds))]
+
+
+def _render(world, n: int, noise: float) -> list:
+    return _render_all([world], n, noise)[0]
 
 
 def phase_device():
@@ -706,12 +735,15 @@ def phase_kitti_run_slam(dev, name, records, n: int = 61):
         _fail(f"KITTI run launch counts {launches} != {expected}")
     ts_all, _ = read_tum(prefix + "_AllFrameTrajectory.txt")
     ts_kf, _ = read_tum(prefix + "_KeyFrameTrajectory.txt")
-    log = np.loadtxt(prefix + "_Log.txt", ndmin=2)
+    # the chunked driver times no stage, so its log is the reference's: the
+    # header and no row
+    with open(prefix + "_Log.txt") as f:
+        log = f.read().splitlines()
     gt_ts = load_kitti(str(KITTI_DIR)).timestamps
-    if (len(ts_all) != frames or len(ts_kf) != n_kf or log.shape != (frames, len(FIELDS))
+    if (len(ts_all) != frames or len(ts_kf) != n_kf or log != ["# " + " ".join(FIELDS)]
             or not np.allclose(ts_all, gt_ts[:frames], atol=1e-6)):
         _fail(f"KITTI outputs: {len(ts_all)} frame rows, {len(ts_kf)} keyframe rows, "
-              f"log {log.shape}; want {frames}, {n_kf}, ({frames}, {len(FIELDS)})")
+              f"log of {len(log)} lines; want {frames}, {n_kf}, the header alone")
     for r in records:
         # this slice's main path: the user's entry point at KITTI width
         r["launches"] = launches[r["name"]]
@@ -888,6 +920,283 @@ def phase_rectify(dev):
               f"loader vs card {err_loader}")
 
 
+def _sync_ms(fn, reps: int):
+    """fn() once to warm up, then the ms of each of ``reps`` calls (host
+    clock around work that ends in a device synchronize); fn's last result."""
+    import torch
+    out = fn()
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return out, ms
+
+
+def _same_on_every_rank(results, label: str) -> None:
+    import torch
+
+    def equal(a, b):
+        if torch.is_tensor(a):
+            return a.dtype == b.dtype and torch.equal(a, b)
+        if isinstance(a, (tuple, list)):
+            return len(a) == len(b) and all(equal(x, y) for x, y in zip(a, b))
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(equal(a[k], b[k]) for k in a)
+        return True   # timings and counts are each rank's own
+    if not all(equal(results[0], r) for r in results[1:]):
+        _fail(f"{label}: the ranks returned different results")
+
+
+def _fabricated_map(cfg, dev, n_kf: int = 80, n_pt: int = 96, seed: int = 7):
+    """tests/test_dist.py's >64-keyframe map (poses on a noisy line, point
+    landmarks seen from many keyframes), built from the same numpy draws."""
+    import torch
+    from gfplslam_torch.models import map as map_ops
+
+    rng = np.random.default_rng(seed)
+    cam = cfg.camera
+    poses = []
+    for _ in range(n_kf):
+        t = np.eye(4, dtype=np.float32)
+        t[2, 3] = 0.05 * len(poses) + rng.normal(0, 2e-3)
+        t[0, 3] = rng.normal(0, 2e-3)
+        poses.append(t)
+    poses = np.stack(poses)
+    pts = np.stack([rng.uniform(-2, 2, n_pt), rng.uniform(-1.5, 1.5, n_pt),
+                    rng.uniform(6, 20, n_pt)], 1).astype(np.float32)
+    po_kf, po_lm, po_uv = [], [], []
+    for ki in range(n_kf):
+        t_cw = np.linalg.inv(poses[ki])
+        pc = pts @ t_cw[:3, :3].T + t_cw[:3, 3]
+        u = cam.fx * pc[:, 0] / pc[:, 2] + cam.cx
+        v = cam.fy * pc[:, 1] / pc[:, 2] + cam.cy
+        vis = (pc[:, 2] > 0.5) & (u > 0) & (u < cam.width) & (v > 0) & (v < cam.height)
+        for pi in np.nonzero(vis)[0][:24]:
+            po_kf.append(ki)
+            po_lm.append(pi)
+            po_uv.append([u[pi] + rng.normal(0, 0.3), v[pi] + rng.normal(0, 0.3)])
+    m = map_ops.empty_map(cfg, dev)
+
+    def put(x, vals):
+        x = x.clone()
+        vals = torch.as_tensor(np.asarray(vals), dtype=x.dtype, device=dev)
+        x[:len(vals)] = vals
+        return x
+    n_obs = len(po_kf)
+    return m._replace(
+        kf_pose=put(m.kf_pose, poses), kf_valid=put(m.kf_valid, [True] * n_kf),
+        n_kf=m.n_kf.new_tensor(n_kf), pt_pos=put(m.pt_pos, pts),
+        pt_valid=put(m.pt_valid, [True] * n_pt), pt_obs_n=put(m.pt_obs_n, [n_kf] * n_pt),
+        po_kf=put(m.po_kf, po_kf), po_lm=put(m.po_lm, po_lm),
+        po_uv=put(m.po_uv, np.asarray(po_uv, np.float32)),
+        po_valid=put(m.po_valid, [True] * n_obs))
+
+
+def phase_dist_ba(dev, name):
+    """Acceptance config 5's problem (16 keyframes, 8064 points, 1008
+    lines, ``bench_dist_ba.make_problem`` seed 0) on the card: the dense
+    ``solve_ba`` against ``solve_ba_sharded`` over one NCCL rank and over
+    four gloo ranks sharing the card, 8 LM iterations (``tol=0``), poses
+    within tests/test_dist.py's 5e-3 and equal on every rank; ms per LM
+    iteration of each. Then ``SLAMSystem.finish(run_global_ba=True)`` over
+    four ranks on tests/test_dist.py's 80-keyframe map against the dense
+    finish."""
+    import torch
+    from gfplslam_torch.apps import bench_dist_ba
+    from gfplslam_torch.config import (CameraParams, CapacityParams, Config,
+                                       OrbParams)
+    from gfplslam_torch.models import ba
+    from gfplslam_torch.models.slam import SLAMSystem
+    from gfplslam_torch.parallel import dist_ba, multihost, workers
+
+    cam = CameraParams()
+    iters, reps = 8, 3
+    prob = bench_dist_ba.make_problem(16, 8064, 1008, cam, seed=0)
+    prob_dev = type(prob)(*(x.to(dev) for x in prob))
+    dense, ms = _sync_ms(lambda: ba.solve_ba(cam, prob_dev, max_iters=iters, tol=0.0),
+                         reps)
+    dense_pose = dense.kf_pose.cpu()
+    print(f"[dist-ba] 16 KF / 8064 pt / 1008 ln ({int(prob.po_valid.sum())} + "
+          f"{int(prob.lo_valid.sum())} observations), {iters} LM iterations: dense "
+          f"solve_ba {statistics.median(ms) / iters:.4f} ms per iteration (median of "
+          f"{reps}), err {float(dense.err):.6f}; device {name} ({_smi()})")
+    for n in (1, 4):
+        backend = multihost.backend_for("cuda", n)
+        t0 = time.perf_counter()
+        out = multihost.launch(workers.sharded_ba, n, cam,
+                               dist_ba.shard_problem_by_landmark(prob, n), "cuda",
+                               iters, 0.0, reps, device="cuda")
+        wall = time.perf_counter() - t0
+        _same_on_every_rank([r[0] for r in out], f"sharded BA over {n} {backend} ranks")
+        res, rank_ms = out[0]
+        d_pose = float((res.kf_pose - dense_pose).abs().max())
+        d_err = abs(float(res.err) - float(dense.err))
+        print(f"[dist-ba] solve_ba_sharded over {n} {backend} rank(s) on one card: "
+              f"{statistics.median(rank_ms):.4f} ms per iteration (rank 0, median of "
+              f"{reps}); poses vs dense max {d_pose:.3e}, err {float(res.err):.6f} "
+              f"(vs dense {d_err:.3e}); {wall:.1f} s with the ranks' start; "
+              f"a correctness run, not a scaling measurement")
+        if not (torch.allclose(res.kf_pose, dense_pose, rtol=5e-3, atol=5e-3)
+                and d_err < 5e-3 and int(res.iters) == iters):
+            _fail(f"sharded BA over {n} ranks disagrees with the dense solve: poses "
+                  f"{d_pose}, err {d_err}, iterations {int(res.iters)}")
+
+    cfg = Config(cap=CapacityParams(n_pt=256, n_ln=128, n_kf_window=4, n_kf_max=96,
+                                    n_map_pt=128, n_map_ln=64, n_obs_pt=128,
+                                    n_obs_ln=64),
+                 orb=OrbParams(nlevels=2),
+                 camera=CameraParams(width=376, height=240, fx=217.6, fy=217.6,
+                                     cx=183.7, cy=126.1, baseline=0.11))
+    m = _fabricated_map(cfg, dev)
+    slam = SLAMSystem(cfg, device=dev)
+    slam.map, slam._n_kf_host = m, int(m.n_kf)
+    slam.finish(run_global_ba=True)
+    dense = type(m)(*(x.cpu() for x in slam.map))
+    out = multihost.launch(workers.finish_global_ba, 4, cfg,
+                           type(m)(*(x.cpu() for x in m)), "cuda", device="cuda")
+    _same_on_every_rank(out, "finish over 4 ranks")
+    got = out[0]
+    d_pose = float((got.kf_pose - dense.kf_pose).abs().max())
+    ints = [f for f, x in zip(got._fields, got) if not x.is_floating_point()]
+    same_ints = all(torch.equal(getattr(got, f), getattr(dense, f)) for f in ints)
+    print(f"[dist-ba] finish(run_global_ba=True) on the 80-KF map over 4 gloo ranks: "
+          f"maps equal on every rank; keyframe poses vs the dense finish max "
+          f"{d_pose:.3e}; {len(ints)} integer fields equal {same_ints}")
+    if not (torch.allclose(got.kf_pose, dense.kf_pose, rtol=1e-3, atol=5e-4)
+            and same_ints):
+        _fail("sharded finish disagrees with the dense finish")
+
+
+def phase_batch_vo(dev, name, records, n_seq: int = 4, n: int = 24):
+    """``run_vo_batch`` at full width: 4 EuRoC worlds (752x480, bench.py's
+    world with seed 3 + s, noise 1.5), default Config, 24 frames each, with
+    no group and over four gloo ranks sharing the card. Per sequence: the
+    integer outputs equal, poses within 0.08 m aligned ATE of each other,
+    each ATE < 5% of its path; launches as the frames imply."""
+    import torch
+    from gfplslam_torch.config import CameraParams, Config
+    from gfplslam_torch.io import synthetic
+    from gfplslam_torch.parallel import multihost, workers
+    from gfplslam_torch.parallel.batch import run_vo_batch
+    from gfplslam_torch.utils.kernel_bench import u8
+    from gfplslam_torch.utils.trajectory import ate_rmse
+
+    cfg = Config(camera=CameraParams())
+    worlds = [synthetic.make_world(n_frames=n, n_points=900, n_lines=90, seed=3 + s,
+                                   cam=cfg.camera) for s in range(n_seq)]
+    t0 = time.perf_counter()
+    rendered = _render_all(worlds, n, noise=1.5)
+    il = u8(np.stack([[f[0] for f in frames] for frames in rendered]))
+    ir = u8(np.stack([[f[1] for f in frames] for frames in rendered]))
+    ts = np.stack([w.timestamps.astype(np.float32) for w in worlds])
+    print(f"[batch-vo] rendered {n_seq} x {n} frames 752x480 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    expected = {"fast9_score": n_seq * 2 * n, "hamming_matrix": n_seq * (4 * n - 2)}
+
+    run_vo_batch(cfg, il[:1, :2], ir[:1, :2], ts[:1, :2], device=dev)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    poses, aux = run_vo_batch(cfg, il, ir, ts, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _counts()
+    poses, aux = poses.cpu(), {k: v.cpu() for k, v in aux.items()}
+    print(f"[batch-vo] no group: {n_seq} x {n} frames in {secs:.3f} s = "
+          f"{n_seq * (n - 1) / secs:.3f} tracked frames/s; launches {launches} "
+          f"(expected {expected}); device {name} ({_smi()})")
+    if launches != expected:
+        _fail(f"batch VO launch counts {launches} != {expected}")
+
+    out = multihost.launch(workers.vo_batch, n_seq, cfg, il, ir, ts, "cuda",
+                           device="cuda")
+    _same_on_every_rank([r[:2] for r in out], "batch VO over 4 ranks")
+    r_poses, r_aux = out[0][:2]
+    rank_launches = {k: sum(r[2][k] for r in out) for k in expected}
+    print(f"[batch-vo] over {n_seq} gloo ranks on one card: slowest rank "
+          f"{max(r[3] for r in out):.3f} s; launches summed over the ranks "
+          f"{rank_launches}")
+    if rank_launches != expected:
+        _fail(f"batch VO over ranks launch counts {rank_launches} != {expected}")
+    for s, w in enumerate(worlds):
+        path = float(np.linalg.norm(np.diff(w.poses[:, :3, 3], axis=0), axis=1).sum())
+        ate = ate_rmse(poses[s].numpy().astype(np.float64), w.poses)
+        between = ate_rmse(r_poses[s].numpy().astype(np.float64),
+                           poses[s].numpy().astype(np.float64))
+        same = all(torch.equal(r_aux[k][s], aux[k][s])
+                   for k in ("accepted", "n_pt", "n_ln", "is_kf"))
+        print(f"[batch-vo] sequence {s} (seed {3 + s}): ATE {ate:.5f} m of path "
+              f"{path:.4f} m ({100 * ate / path:.3f}%), ranks vs no group "
+              f"{between:.2e} m, integer outputs equal {same}, accepted "
+              f"{float(aux['accepted'][s].float().mean()):.3f}")
+        if not (same and between < 0.08 and ate < 0.05 * path):
+            _fail(f"batch VO sequence {s}: integers equal {same}, between {between}, "
+                  f"ATE {ate} of {path}")
+    for r in records:
+        r["launches_by_path"]["batch_vo"] = launches[r["name"]]
+        r["launches_by_path"]["batch_vo_4_ranks"] = rank_launches[r["name"]]
+
+
+def phase_analysis_apps(dev, name, records):
+    """The analysis apps through their ``run`` at the reference's
+    defaults: reports finite and each app's own check (``simulate_linecut``:
+    the greedy cut within reach of the grid optimum; ``simulate_pl_loss``:
+    both losses smallest at the true pose on every axis), and the kernels'
+    launches for ``assess`` and ``ab_orb_pattern``."""
+    from gfplslam_torch.apps import (ab_orb_pattern, assess, simulate_linecut,
+                                     simulate_pl_loss)
+
+    def finite(report):
+        vals = [v for v in report.values() if isinstance(v, (int, float))]
+        return all(np.isfinite(vals))
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    summary, _ = assess.run([])
+    launches = _counts()
+    want = {"fast9_score": 2 * 6, "hamming_matrix": 2 * 6 + 2 * 5}
+    print(f"[analysis-apps] assess (6 frames, 376x240): {json.dumps(summary)}; "
+          f"launches {launches} (expected {want})")
+    if not finite(summary) or launches != want or not 0 < summary["match_precision"] <= 1:
+        _fail(f"assess: {summary}, launches {launches}")
+    for r in records:
+        r["launches_by_path"]["assess"] = launches[r["name"]]
+
+    _reset_counts()
+    reports = ab_orb_pattern.run([])
+    launches = _counts()
+    want = {k: 2 * v for k, v in want.items()}
+    print(f"[analysis-apps] ab_orb_pattern: {json.dumps(reports)}; launches "
+          f"{launches} (expected {want})")
+    if (launches != want or [r["pattern"] for r in reports] != ["random", "orb"]
+            or not all(r["stereo_matches"] > 0 and r["crossframe_matches"] > 0
+                       for r in reports)):
+        _fail(f"ab_orb_pattern: {reports}, launches {launches}")
+    for r in records:
+        r["launches_by_path"]["ab_orb_pattern"] = launches[r["name"]]
+
+    summary, data = simulate_linecut.run([])
+    print(f"[analysis-apps] simulate_linecut (200 rounds): {json.dumps(summary)}, "
+          f"smallest gap {min(data['gaps']):.3e}; the JAX package's {REF_LINECUT}")
+    # the greedy cut is a point of the grid, so no gap is negative
+    if (not finite(summary) or min(data["gaps"]) < -1e-3
+            or abs(summary["mean_gap"] - REF_LINECUT["mean_gap"]) > 1e-3):
+        _fail(f"simulate_linecut: {summary}, smallest gap {min(data['gaps'])}")
+    summary, _ = simulate_pl_loss.run([])
+    print(f"[analysis-apps] simulate_pl_loss (100 rounds, grid 20): {json.dumps(summary)}; "
+          f"the JAX package's curvature ratio {REF_PL_CURVATURE}")
+    ratio = summary["line_vs_point_curvature_ratio"]
+    if (not finite(summary) or summary["axes_min_at_true_pose_p2p"] != 6
+            or summary["axes_min_at_true_pose_p2l"] != 6
+            or abs(ratio - REF_PL_CURVATURE) > 1e-3 * REF_PL_CURVATURE):
+        _fail(f"simulate_pl_loss: {summary}")
+    print(f"[analysis-apps] the four apps in {time.perf_counter() - t0:.1f} s; "
+          f"device {name} ({_smi()})")
+
+
 def _run(phase: str, fn, *args):
     """Run one phase; on any failure name it on stderr, then let it end the
     script (the exit code stays non-zero)."""
@@ -903,6 +1212,7 @@ def main() -> None:
         _fail(f"no gfplslam_torch package beside {Path(__file__).name}; run "
               "it from the root of a checkout")
     sys.path.insert(0, str(HERE))
+    t0 = time.perf_counter()
     dev, name = _run("device", phase_device)
     import torch
     _run("build", phase_build)
@@ -915,6 +1225,10 @@ def main() -> None:
     _run("timed-vo", phase_timed_vo, dev, name, records)
     _run("vocab", phase_vocab, dev, name, records)
     _run("rectify", phase_rectify, dev)
+    _run("dist-ba", phase_dist_ba, dev, name)
+    _run("batch-vo", phase_batch_vo, dev, name, records)
+    _run("analysis-apps", phase_analysis_apps, dev, name, records)
+    print(f"[total] every phase passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -8,8 +8,9 @@ mechanically. Configs mirror BASELINE.json "configs":
 2. points+lines with good-line-cutting, pose-only           [EuRoC 752x480]
 3. full local BA sliding window, LC off                     [KITTI 1241x376]
 4. full SLAM: BA + BoW loop closure + PGO (firing)          [EuRoC circuit]
-5. distributed BA scaling: not ported yet (ROADMAP A.6), so the JSON
-   says so under ``"5_dist_ba"`` and ``--skip-dist`` is implied.
+5. distributed BA scaling: ``apps/bench_dist_ba.py`` in a subprocess,
+   one rank per card with two or more cards, else 8 gloo ranks on the CPU
+   (the reference's fallback to its virtual CPU mesh).
 
 Runs on the CUDA card unless ``--device`` names another; every timed run
 ends in a device synchronize.
@@ -22,9 +23,9 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
+import subprocess
+import sys
 import time
-
-DIST_BA = "not ported (ROADMAP A.6)"
 
 
 def _u8(imgs):
@@ -117,13 +118,39 @@ def slam_config(cfg, seeds, motion, n, chunk, lc, reps, device):
     return rows
 
 
+def dist_ba_config(seeds, device, kfs=16, points=8064, lines=1008, iters=8,
+                   reps=3):
+    """Config 5: landmark-sharded distributed BA scaling (a subprocess;
+    same protocol as DIST_BA_r0N.json). The problem size defaults are the
+    reference's."""
+    import torch
+    ranks_on = ("cuda" if device.type == "cuda" and torch.cuda.device_count() >= 2
+                else "cpu")
+    rows = []
+    for seed in seeds[:1]:  # one problem, median-of-reps inside the app
+        out = subprocess.run(
+            [sys.executable, "-m", "gfplslam_torch.apps.bench_dist_ba",
+             "--kfs", str(kfs), "--points", str(points), "--lines", str(lines),
+             "--iters", str(iters), "--reps", str(reps), "--seed", str(seed),
+             "--device", ranks_on],
+            capture_output=True, text=True, timeout=3600)
+        line = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
+        if not line:
+            rows.append({"seed": seed, "error": out.stderr[-400:]})
+            continue
+        data = json.loads(line[-1])
+        rows.append({"seed": seed, "device": ranks_on,
+                     "ms_per_iter": data["ms_per_iter"],
+                     "scaling_efficiency": data["scaling_efficiency"]})
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--seeds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("-o", "--out", default="ACCEPT_torch.json")
-    ap.add_argument("--skip-dist", action="store_true",
-                    help="implied: config 5 is not ported yet (ROADMAP A.6)")
+    ap.add_argument("--skip-dist", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: cuda)")
     args = ap.parse_args(argv)
@@ -157,7 +184,8 @@ def main(argv=None):
         cfg_kitti, seeds, "forward", 61, 20, False, args.reps, device)
     results["configs"]["4_full_slam_lc"] = slam_config(
         cfg_slam, seeds, "circuit", 121, 24, True, args.reps, device)
-    results["configs"]["5_dist_ba"] = DIST_BA
+    if not args.skip_dist:
+        results["configs"]["5_dist_ba"] = dist_ba_config(seeds, device)
     results["wall_s"] = round(time.perf_counter() - t_all, 1)
 
     with open(args.out, "w") as f:

@@ -108,7 +108,13 @@ def main(argv=None):
     ap.add_argument("-o", "--out", default="gfpl_batch")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: cuda)")
+    ap.add_argument("--multihost", action="store_true",
+                    help="join the default process group from the torchrun "
+                         "(or the reference's coordinator) variables first")
     args = ap.parse_args(argv)
+    if args.multihost:
+        from gfplslam_torch.parallel.multihost import ensure_multihost
+        ensure_multihost(device=args.device)
     os.makedirs(args.out, exist_ok=True)
     if args.synthetic:
         if isinstance(args.sequences, list):

@@ -64,7 +64,9 @@ def run(argv=None):
                     help="blocking mapping: BA/LC decisions land at the "
                          "same KF (the reference's synchronous addKeyFrame)")
     ap.add_argument("--multihost", action="store_true",
-                    help="multi-process run (not ported yet: ROADMAP A.6)")
+                    help="join the default process group from the "
+                         "torchrun (or the reference's coordinator) "
+                         "variables before touching devices")
     ap.add_argument("--chunk", type=int, default=0, metavar="N",
                     help="streaming chunk driver: track N frames per queued "
                          "scan and one host read (throughput mode, N frames "
@@ -74,10 +76,8 @@ def run(argv=None):
     args = ap.parse_args(argv)
 
     if args.multihost:
-        raise NotImplementedError(
-            "--multihost needs parallel/multihost.py, which the PyTorch port "
-            "does not have yet (ROADMAP queue A.6); run without it on one "
-            "device")
+        from gfplslam_torch.parallel.multihost import ensure_multihost
+        ensure_multihost(device=args.device)
 
     import torch
 

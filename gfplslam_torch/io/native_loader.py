@@ -121,6 +121,16 @@ def get_lib() -> ctypes.CDLL:
     return _lib
 
 
+def native_available() -> bool:
+    """Whether the loader builds and loads on this host (tests skip on a
+    host with no C++ compiler)."""
+    try:
+        get_lib()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def formats() -> set[str]:
     """The image formats this build decodes."""
     bits = get_lib().gfpl_loader_formats()

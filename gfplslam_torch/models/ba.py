@@ -162,30 +162,46 @@ def _total_error(cam, t_cw, prob, pt_pos, ln_sp, ln_ep):
     return (ep + el) / torch.clamp(n, min=1)
 
 
+def _no_sum(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
 def solve_ba(cam: CameraParams, prob: BAProblem, lambda0: float = 1e-3,
              lambda_k: float = 10.0, max_iters: int = 20,
-             inlier_chi2: float = 7.815, tol: float = 1e-5) -> BAResult:
+             inlier_chi2: float = 7.815, tol: float = 1e-5, *,
+             sel=None, psum=_no_sum) -> BAResult:
     """LM loop with Schur-complement camera solve.
 
     lambda schedule and iteration budget mirror lambda_lba_lm/_k and
     max_iters_lba (config.cpp:55-57, mapHandler.cpp:1654-1678). After
     convergence, observations with robust chi2 above ``inlier_chi2`` are
     marked outliers (the reference's post-BA marking, :1714-1836).
-    Runs ``max_iters`` iterations; once converged they change nothing."""
+    Runs ``max_iters`` iterations; once converged they change nothing.
+
+    ``sel`` and ``psum`` serve the landmark-sharded solver
+    (``parallel/dist_ba.py``): the selectors of the shard's own landmark
+    ids, and the sum over ranks of the robust error's two parts and of the
+    reduced camera system (the reference's ``psum``s). The defaults solve
+    ``prob`` alone."""
     dev = prob.kf_pose.device
     t_cw0 = se3.inverse_se3(prob.kf_pose)
-    sel = ba_core.make_selectors(prob)
+    if sel is None:
+        sel = ba_core.make_selectors(prob)
     kf_opt = prob.kf_free & prob.kf_valid
 
     def build_blocks(t_cw, pt_pos, ln_sp, ln_ep):
         bk = ba_core.build_blocks(cam, prob, sel, _point_residuals,
                                   _line_residuals, t_cw, pt_pos, ln_sp, ln_ep)
-        return bk, bk.err_sum / torch.clamp(bk.err_cnt, min=1.0)
+        err_sum, err_cnt = psum(torch.stack([bk.err_sum, bk.err_cnt]))
+        return bk, err_sum / torch.clamp(err_cnt, min=1.0)
 
     def solve_with_lam(bk, t_cw, pt_pos, ln_sp, ln_ep, lam):
         """Damped Schur solve + retraction + per-landmark acceptance."""
         hpp_inv, hll_inv = ba_core.landmark_inverses(bk, lam)
-        s_full, rhs = ba_core.schur_reduce(bk, hpp_inv, hll_inv)
+        s_local, rhs_local = ba_core.schur_reduce(bk, hpp_inv, hll_inv)
+        k6 = s_local.shape[0]
+        s_rhs = psum(torch.cat([s_local, rhs_local.reshape(k6, 1)], 1))
+        s_full, rhs = s_rhs[:, :k6], s_rhs[:, k6].reshape(rhs_local.shape)
         dx_cam = ba_core.camera_solve(s_full, rhs, kf_opt, lam)
         dx_pt, dx_ln = ba_core.back_substitute(bk, hpp_inv, hll_inv, dx_cam)
         t_new, pt_new, sp_new, ep_new = ba_core.retract(

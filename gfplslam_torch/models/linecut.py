@@ -29,6 +29,74 @@ _NEIGHBOR_STEPS = np.array([
 ], dtype=np.float32)
 
 
+def _proj_jac(cam: CameraParams, p: torch.Tensor) -> torch.Tensor:
+    """[..., 3] camera-frame points -> [..., 2, 3] d(u,v)/d(X,Y,Z) pinhole
+    Jacobians (getJacob3D_2D)."""
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    iz = 1.0 / torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
+    iz2 = iz * iz
+    zero = 0.0 * iz
+    return torch.stack([
+        torch.stack([cam.fx * iz, zero, -cam.fx * x * iz2], -1),
+        torch.stack([zero, cam.fy * iz, -cam.fy * y * iz2], -1),
+    ], -2)
+
+
+def _residual_jac(cam: CameraParams, p: torch.Tensor, lx: torch.Tensor,
+                  ly: torch.Tensor, homog_th: float = 1e-7) -> torch.Tensor:
+    """[..., 6] d(l . proj(p))/d(twist) (shared with the pose solver)."""
+    return twist_jac(cam, p, lx, ly, homog_th)
+
+
+def endpoint_info(cam: CameraParams, dt: torch.Tensor, p_prev: torch.Tensor,
+                  cov_p: torch.Tensor, le_obs: torch.Tensor):
+    """One endpoint's residual Jacobian [..., 6] and scalar residual
+    variance [...]: the point [..., 3] and its covariance [..., 3, 3]
+    carried into the current frame by ``dt`` and projected onto the
+    observed line's normal (getPoseInfoOnLine, :1342-1411)."""
+    rot = dt[:3, :3]
+    pc = (rot @ p_prev[..., :, None])[..., 0] + dt[:3, 3]
+    a = _proj_jac(cam, pc) @ rot                              # [..., 2, 3]
+    cov_uv = a @ cov_p @ a.transpose(-1, -2)                  # [..., 2, 2]
+    j_loss = le_obs[..., :2]
+    cov_r = ((j_loss[..., None, :] @ cov_uv)[..., 0, :] * j_loss).sum(-1)
+    return _residual_jac(cam, pc, le_obs[..., 0], le_obs[..., 1]), cov_r
+
+
+def line_info_factors(cam: CameraParams, dt: torch.Tensor, sp3d: torch.Tensor,
+                      ep3d: torch.Tensor, cov_s: torch.Tensor,
+                      cov_e: torch.Tensor, le_obs: torch.Tensor,
+                      r0: torch.Tensor, r1: torch.Tensor):
+    """Rank-2 factors of a cut line's pose information, for one line or a
+    batch of them (any leading shape, broadcast with the ratios ``r0``,
+    ``r1``): info = J diag(d) J^T with J [..., 6, 2] = [j_start, j_end]
+    and d [..., 2] the inverse residual variances (getPoseInfoOnLine,
+    :1342-1411)."""
+    r0v, r1v = r0[..., None], r1[..., None]
+    sp = (1 - r0v) * sp3d + r0v * ep3d
+    ep = (1 - r1v) * ep3d + r1v * sp3d
+    r0m, r1m = r0v[..., None], r1v[..., None]
+    cov_sp = (1 - r0m) ** 2 * cov_s + r0m ** 2 * cov_e
+    cov_ep = (1 - r1m) ** 2 * cov_e + r1m ** 2 * cov_s
+    js, cs = endpoint_info(cam, dt, sp, cov_sp, le_obs)
+    je, ce = endpoint_info(cam, dt, ep, cov_ep, le_obs)
+    d = torch.stack([1.0 / torch.clamp(cs, min=1e-12),
+                     1.0 / torch.clamp(ce, min=1e-12)], -1)
+    return torch.stack([js, je], -1), d
+
+
+def pose_info_line(cam: CameraParams, dt: torch.Tensor, sp3d: torch.Tensor,
+                   ep3d: torch.Tensor, cov_s: torch.Tensor,
+                   cov_e: torch.Tensor, le_obs: torch.Tensor,
+                   r0: torch.Tensor, r1: torch.Tensor) -> torch.Tensor:
+    """[..., 6, 6] pose information of a cut line (getPoseInfoOnLine,
+    :1342-1411). ``dt`` is T_curr<-prev (the reference's DT_inv); the
+    endpoints and covariances are interpolated by the cut ratios before
+    transport."""
+    j, d = line_info_factors(cam, dt, sp3d, ep3d, cov_s, cov_e, le_obs, r0, r1)
+    return (j * d[..., None, :]) @ j.transpose(-1, -2)
+
+
 def line_info_factors_batch(cam: CameraParams, dt: torch.Tensor,
                             sp3d: torch.Tensor, ep3d: torch.Tensor,
                             cov_s: torch.Tensor, cov_e: torch.Tensor,
@@ -127,7 +195,22 @@ def _cholesky_or_nan(m: torch.Tensor) -> torch.Tensor:
     positive definite (what the reference's solver returns), without a host
     check."""
     l, info = torch.linalg.cholesky_ex(_sym(m))
-    return torch.where(info == 0, l, torch.full_like(l, float("nan")))
+    return torch.where(info[..., None, None] == 0, l, torch.full_like(l, float("nan")))
+
+
+def _logdet_pd(m: torch.Tensor) -> torch.Tensor:
+    """log det of (near-)PD [..., 6, 6] matrices by Cholesky (linespec.cpp
+    logdet); -inf where the factorization fails."""
+    l = _cholesky_or_nan(m + 1e-9 * torch.eye(6, dtype=m.dtype, device=m.device))
+    d = torch.diagonal(l, dim1=-2, dim2=-1)
+    val = 2.0 * torch.log(torch.clamp(d, min=1e-30)).sum(-1)
+    return torch.where(torch.isfinite(d).all(-1), val,
+                       torch.full_like(val, float("-inf")))
+
+
+def _min_eig(m: torch.Tensor) -> torch.Tensor:
+    """Smallest eigenvalue of symmetric [..., 6, 6] matrices."""
+    return torch.linalg.eigvalsh(_sym(m))[..., 0]
 
 
 class CutResult(NamedTuple):
@@ -204,7 +287,7 @@ def cut_lines(cam: CameraParams, dt: torch.Tensor, lns: LineMatches,
         return torch.where(torch.isfinite(val), val, neg_inf)
 
     def cand_metrics_mineig(rest, js, ds):
-        return torch.linalg.eigvalsh(_sym(rest[:, None] + info_of(js, ds)))[..., 0]
+        return _min_eig(rest[:, None] + info_of(js, ds))
 
     def body(carry):
         r0, r1, j_cur, d_cur, it, _ = carry

@@ -57,10 +57,10 @@ def _transform(dt: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 
 def twist_jac(cam: CameraParams, pc: torch.Tensor, lx: torch.Tensor,
               ly: torch.Tensor, homog_th: float) -> torch.Tensor:
-    """[N, 6] d(l . proj(p))/d(twist) at camera-frame points ``pc``: the
-    closed form shared by the point and line residuals and the line cutter
-    (stereoFrameHandler.cpp:2131-2215)."""
-    gx, gy, gz = pc[:, 0], pc[:, 1], pc[:, 2]
+    """[..., 6] d(l . proj(p))/d(twist) at camera-frame points ``pc``
+    [..., 3]: the closed form shared by the point and line residuals and the
+    line cutter (stereoFrameHandler.cpp:2131-2215)."""
+    gx, gy, gz = pc[..., 0], pc[..., 1], pc[..., 2]
     fgz2 = cam.fx / torch.clamp(gz * gz, min=homog_th)
     return torch.stack([
         fgz2 * lx * gz,

@@ -21,6 +21,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gfplslam_torch.config import Config
 from gfplslam_torch.models import ba as ba_ops
@@ -31,7 +32,6 @@ from gfplslam_torch.models import tracker as trk
 from gfplslam_torch.models import vo as vo_mod
 from gfplslam_torch.models.vo import VisualOdometry
 from gfplslam_torch.utils import checkpoint
-from gfplslam_torch.utils.timing import TimeLog
 
 CUDA = torch.device("cuda")
 LC_IDLE, LC_ACTIVE, LC_READY = 0, 1, 2
@@ -180,7 +180,6 @@ class SLAMSystem:
             self.vo.records.append(vo_mod.FrameRecord(
                 float(timestamps[0]), np.eye(4), True, 0, 0, True,
                 base_kf=0, t_rel_base=np.eye(4)))
-            self.vo.timelog.append(TimeLog())
             self.vo.frame_idx += 1
             self.vo.kf_count = 1
             start = 1
@@ -237,10 +236,6 @@ class SLAMSystem:
             self.vo.records.append(vo_mod.FrameRecord(
                 ts_j, t_abs, bool(is_kf), int(packed[j, 3]), int(packed[j, 4]),
                 bool(accepted), base_kf=base_kf, t_rel_base=t_rel_base))
-            # a queued scan has no per-frame stage boundaries: the row holds
-            # the frame's inlier counts and no times
-            self.vo.timelog.append(TimeLog(num_pt_cross=int(packed[j, 3]),
-                                           num_ln_cross=int(packed[j, 4])))
             self.vo.frame_idx += 1
         if lc_queue:
             # ONE device tensor for the chunk's LC decisions, read at the next
@@ -414,8 +409,11 @@ class SLAMSystem:
     def finish(self, run_global_ba: bool = False):
         """Flush deferred mapping results and any pending loop closure
         (finishSLAM, mapHandler.cpp:96-111); optionally refine everything
-        with one dense global BA on this device (globalBundleAdjustment,
-        mapHandler.cpp:1844-1948)."""
+        with a global BA pass (globalBundleAdjustment,
+        mapHandler.cpp:1844-1948): solved landmark-sharded over the default
+        process group (``parallel/dist_ba.py``) when it has more than one
+        rank, every rank running this same call on the same map; one dense
+        solve on this device otherwise."""
         if self.async_mapping:
             self._harvest_deferred()
         self._drain_lc()
@@ -427,15 +425,40 @@ class SLAMSystem:
             (prob, win_ids, p_ids, l_ids, po_src,
              lo_src) = map_ops.build_local_ba_problem(self.cfg, self.map,
                                                       global_ba=True)
-            res = ba_ops.solve_ba(self.cfg.camera, prob,
-                                  lambda0=self.cfg.slam.lambda_lba_lm,
-                                  lambda_k=self.cfg.slam.lambda_lba_k,
-                                  max_iters=self.cfg.slam.max_iters_lba)
+            lm = dict(lambda0=self.cfg.slam.lambda_lba_lm,
+                      lambda_k=self.cfg.slam.lambda_lba_k,
+                      max_iters=self.cfg.slam.max_iters_lba)
+            if dist.is_initialized() and dist.get_world_size() > 1:
+                res = self._global_ba_sharded(prob, p_ids, l_ids, lm)
+            else:
+                res = ba_ops.solve_ba(self.cfg.camera, prob, **lm)
             self.map = map_ops.apply_ba_result(self.cfg, self.map, res,
                                                win_ids, p_ids, l_ids)
             # post-BA outlier-observation deletion (mapHandler.cpp:1714-1836)
             self.map = map_ops.apply_ba_outliers(self.cfg, self.map, res,
                                                  po_src, lo_src)
+
+    def _global_ba_sharded(self, prob, p_ids, l_ids, lm) -> ba_ops.BAResult:
+        """The global BA over every rank of the default group, its result
+        in the unsharded problem's order and sizes."""
+        from gfplslam_torch.parallel import dist_ba
+        sharded, po_perm, lo_perm = dist_ba.shard_problem_by_landmark(
+            prob, dist.get_world_size(), return_perm=True)
+        res = dist_ba.solve_ba_sharded(self.cfg.camera, sharded, **lm)
+        # map the sharded solve's outlier marks back onto the original
+        # problem's observation order (the rebin permutation; padding drops)
+        n_po, n_lo = prob.po_kf.shape[0], prob.lo_kf.shape[0]
+        po_in = map_ops.set_rows(
+            torch.ones(n_po, dtype=torch.bool, device=self.device),
+            torch.where(po_perm >= 0, po_perm, n_po), res.po_inlier)
+        lo_in = map_ops.set_rows(
+            torch.ones(n_lo, dtype=torch.bool, device=self.device),
+            torch.where(lo_perm >= 0, lo_perm, n_lo), res.lo_inlier)
+        # crop the shard padding back to the problem's pool sizes
+        return res._replace(pt_pos=res.pt_pos[:p_ids.shape[0]],
+                            ln_sp=res.ln_sp[:l_ids.shape[0]],
+                            ln_ep=res.ln_ep[:l_ids.shape[0]],
+                            po_inlier=po_in, lo_inlier=lo_in)
 
     def save(self, path: str) -> None:
         """Checkpoint the full map + loop + tracker state in the reference's

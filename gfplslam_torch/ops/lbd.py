@@ -94,6 +94,15 @@ def lbd_float(gx: torch.Tensor, gy: torch.Tensor, sp: torch.Tensor,
     return torch.clamp(feat, max=0.4)
 
 
+def lbd_float_one(g2: torch.Tensor, sp: torch.Tensor, ep: torch.Tensor
+                  ) -> torch.Tensor:
+    """72-dim float band descriptor of one segment [2] -> [2]; ``g2`` is the
+    stacked [H, W, 2] (gx, gy) gradient (the closed form of
+    :func:`lbd_float` for one line)."""
+    return lbd_float(g2[None, ..., 0], g2[None, ..., 1], sp[None, None],
+                     ep[None, None])[0, 0]
+
+
 def binarize(feat: torch.Tensor) -> torch.Tensor:
     """[..., 72] float -> [..., 8] int32 via the fixed pair comparisons."""
     pat = _pattern(feat.device)

@@ -1,6 +1,6 @@
 """Masked parallel match selection: mutual-best, budgets, per-target dedup.
 
-Port of the called half of ``gfplslam_tpu/ops/matching.py`` (the reference's
+Port of ``gfplslam_tpu/ops/matching.py`` (the reference's
 matcher post-processing, stereoFrameHandler.cpp:451-695). Ties resolve as in
 the reference: ``argmin`` returns the first index and sorts are stable.
 Indices are int64 (torch's index type).
@@ -13,6 +13,7 @@ from typing import NamedTuple
 import torch
 
 from gfplslam_torch.ops.hamming import BIG
+from gfplslam_torch.utils.robust import masked_median, masked_stdv_mad_nozero
 
 _INT32_MAX = 2 ** 31 - 1
 
@@ -43,6 +44,20 @@ def mutual_best(d: torch.Tensor) -> Matches:
     ok = col_best[i1] == torch.arange(d.shape[0], device=d.device)
     ok &= d1 < float(BIG)
     return Matches(idx=i1, dist=d1, valid=ok)
+
+
+def ratio_gate(m: Matches, d2: torch.Tensor, max_ratio: float) -> Matches:
+    """Nearest/second-nearest ratio test (max_ratio_12_p, config.cpp:103)."""
+    return m._replace(valid=m.valid & (m.dist < max_ratio * d2))
+
+
+def mad_gate(m: Matches, rel_th: float) -> Matches:
+    """Median + MAD relative distance gate, as the reference applies to line
+    (and hybrid point) matches: keep d < median + k*mad
+    (stereoFrameHandler.cpp:660-686 pattern)."""
+    med = masked_median(m.dist, m.valid)
+    mad = masked_stdv_mad_nozero(m.dist, m.valid)
+    return m._replace(valid=m.valid & (m.dist < med + rel_th * mad))
 
 
 def budget_gate(m: Matches, budget: int) -> Matches:

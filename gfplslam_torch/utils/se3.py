@@ -137,6 +137,60 @@ def transport_cov_se3(t: torch.Tensor, cov: torch.Tensor) -> torch.Tensor:
     return adj @ cov @ adj.transpose(-1, -2)
 
 
+def reverse_se3(t: torch.Tensor) -> torch.Tensor:
+    """The reference's twist-ordering swap at the transform level
+    (auxiliar.cpp:294-310): the same transform; the reorder itself is
+    :func:`reverse_twist`."""
+    return t
+
+
+def reverse_twist(x: torch.Tensor) -> torch.Tensor:
+    """[..., 6] [rho, phi] <-> [phi, rho] swap."""
+    return torch.cat([x[..., 3:], x[..., :3]], -1)
+
+
+def to_quaternion(r: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] rotation -> [..., 4] quaternion [qx, qy, qz, qw]
+    (auxiliar.cpp:313-340), Shepperd's branch chosen per matrix."""
+    m00, m01, m02 = r[..., 0, 0], r[..., 0, 1], r[..., 0, 2]
+    m10, m11, m12 = r[..., 1, 0], r[..., 1, 1], r[..., 1, 2]
+    m20, m21, m22 = r[..., 2, 0], r[..., 2, 1], r[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def root(x):
+        return torch.sqrt(torch.clamp(x, min=_EPS)) * 2.0
+
+    s = root(tr + 1.0)
+    case_w = torch.stack([(m21 - m12) / s, (m02 - m20) / s, (m10 - m01) / s, 0.25 * s], -1)
+    s = root(1.0 + m00 - m11 - m22)
+    case_x = torch.stack([0.25 * s, (m01 + m10) / s, (m02 + m20) / s, (m21 - m12) / s], -1)
+    s = root(1.0 + m11 - m00 - m22)
+    case_y = torch.stack([(m01 + m10) / s, 0.25 * s, (m12 + m21) / s, (m02 - m20) / s], -1)
+    s = root(1.0 + m22 - m00 - m11)
+    case_z = torch.stack([(m02 + m20) / s, (m12 + m21) / s, 0.25 * s, (m10 - m01) / s], -1)
+    use_w = (tr > 0)[..., None]
+    use_x = ((m00 >= m11) & (m00 >= m22))[..., None]
+    use_y = (m11 >= m22)[..., None]
+    q = torch.where(use_w, case_w,
+                    torch.where(use_x, case_x, torch.where(use_y, case_y, case_z)))
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def quaternion_to_rotation(q: torch.Tensor) -> torch.Tensor:
+    """[..., 4] quaternion [qx, qy, qz, qw] -> [..., 3, 3] rotation."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], -1),
+        torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)], -1),
+        torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], -1),
+    ], -2)
+
+
+def transform_point(t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """[..., 4, 4] transforms applied to [..., 3] points."""
+    return (t[..., :3, :3] @ p[..., :, None])[..., 0] + t[..., :3, 3]
+
+
 def is_finite(x: torch.Tensor) -> torch.Tensor:
     """All-finite predicate, as a 0-d bool tensor (no host read)."""
     return torch.isfinite(x).all()

@@ -12,7 +12,6 @@ import json
 import os
 
 import numpy as np
-import pytest
 import torch
 
 from gfplslam_tpu.apps import run_slam as ref_run_slam
@@ -55,7 +54,16 @@ def test_run_slam_matches_reference(tmp_path, capsys):
     assert json.loads(last[0]) == got and json.loads(last[-1]) == want
 
 
-def test_run_slam_multihost_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.6"):
-        run_slam.main(ARGS + ["--multihost", "--device", "cpu",
-                              "-o", str(tmp_path / "x")])
+def test_run_slam_multihost_is_refused(tmp_path, monkeypatch):
+    """``--multihost`` is no longer refused (the name dates from when it
+    raised): with no coordinator in the environment it joins no group and
+    runs on this process."""
+    import torch.distributed as dist
+    for name in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+                 "JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS",
+                 "NUM_PROCESSES", "PROCESS_ID"):
+        monkeypatch.delenv(name, raising=False)
+    got = run_slam.main(ARGS + ["--multihost", "--device", "cpu", "--vo-only",
+                                "-o", str(tmp_path / "x")])
+    assert got["frames"] == 8 and not got["lost"]
+    assert not dist.is_initialized()

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from gfplslam_tpu.apps import acceptance as ref_acceptance
+from gfplslam_tpu.apps import run_slam as ref_run_slam
 
 from gfplslam_torch.apps import acceptance, batch_eval, run_slam
 from gfplslam_torch.config import (CameraParams, CapacityParams, Config,
@@ -49,30 +50,35 @@ def test_timed_vo_equals_vo():
         assert all(getattr(row, f) > 0 for f in FIELDS if f.startswith("time"))
 
 
+def _log(path):
+    """(header fields, rows) of a ``_Log.txt``."""
+    with open(path) as f:
+        head = f.readline().split()[1:]
+        return head, [ln.split() for ln in f if ln.strip()]
+
+
 def test_run_slam_chunk_driver(tmp_path):
     """The streaming chunk driver, with a short last chunk: one row per
-    frame done in each trajectory file.
-
-    The log departs from the reference's on purpose: the reference's
-    chunked driver writes the header and no row, the port's one row per
-    frame, holding that frame's inlier counts (a queued scan has no stage
-    boundaries, so every time is 0)."""
+    frame done in each trajectory file, and the log the reference's
+    ``run_slam --chunk`` writes on the same world: its header and, as the
+    reference's chunked driver times no stage, no row."""
     out = str(tmp_path / "chunk")
-    got, engine = run_slam.run(["--synthetic", "--small", "--frames", "7",
-                                "--chunk", "4", "--device", "cpu", "-o", out])
+    args = ["--synthetic", "--small", "--frames", "7", "--chunk", "4"]
+    got, engine = run_slam.run(args + ["--device", "cpu", "-o", out])
     assert got["frames"] == 7 and not got["lost"] and got["keyframes"] >= 2
     assert got["ate_rmse"] < 0.08
     ts, _ = read_tum(out + "_AllFrameTrajectory.txt")
     kts, _ = read_tum(out + "_KeyFrameTrajectory.txt")
     assert len(ts) == 7 and len(kts) == got["keyframes"]
-    rows = np.loadtxt(out + "_Log.txt", ndmin=2)
-    assert rows.shape == (7, len(FIELDS))
-    col = {f: i for i, f in enumerate(FIELDS)}
-    assert (rows[:, [i for f, i in col.items() if f.startswith("time")]] == 0).all()
-    recs = engine.vo.records
-    np.testing.assert_array_equal(rows[:, col["num_pt_cross"]], [r.n_pt for r in recs])
-    np.testing.assert_array_equal(rows[:, col["num_ln_cross"]], [r.n_ln for r in recs])
-    assert rows[1:, col["num_pt_cross"]].min() > 0
+    ref_out = str(tmp_path / "ref")
+    want = ref_run_slam.main(args + ["-o", ref_out])
+    assert want["frames"] == got["frames"]
+    head, rows = _log(out + "_Log.txt")
+    ref_head, ref_rows = _log(ref_out + "_Log.txt")
+    assert head == ref_head == list(FIELDS)
+    assert np.asarray(rows, float).reshape(-1, len(head)).shape == \
+        np.asarray(ref_rows, float).reshape(-1, len(ref_head)).shape
+    assert rows == ref_rows
 
 
 def test_run_slam_vo_only_timing(tmp_path):
@@ -110,17 +116,33 @@ def _captured_configs(mod, monkeypatch, argv):
                         lambda *a: calls.append(("vo", a[:5])) or [])
     monkeypatch.setattr(mod, "slam_config",
                         lambda *a: calls.append(("slam", a[:7])) or [])
+    monkeypatch.setattr(mod, "dist_ba_config",
+                        lambda *a: calls.append(("dist", a[:1])) or [])
     return calls, mod.main(argv)
 
 
 def test_acceptance_configs_equal(tmp_path, monkeypatch):
+    """The five configurations run with the reference's arguments; config
+    5 (``dist_ba_config``) with the same seeds."""
     got, res = _captured_configs(acceptance, monkeypatch,
                                  ["-o", str(tmp_path / "p.json"), "--device", "cpu"])
     want, _ = _captured_configs(ref_acceptance, monkeypatch,
-                                ["-o", str(tmp_path / "r.json"), "--skip-dist"])
-    assert len(got) == len(want) == 4
-    for (kind, (cfg, *args)), (ref_kind, (ref_cfg, *ref_args)) in zip(got, want):
+                                ["-o", str(tmp_path / "r.json")])
+    assert len(got) == len(want) == 5
+    for (kind, (cfg, *args)), (ref_kind, (ref_cfg, *ref_args)) in zip(got[:4], want[:4]):
         assert kind == ref_kind and args == ref_args
         assert dataclasses.asdict(cfg) == dataclasses.asdict(
             convert.config_from_ref(ref_cfg))
-    assert res["configs"]["5_dist_ba"] == acceptance.DIST_BA
+    assert got[4] == want[4] == ("dist", ([3, 11, 19],))
+    assert "5_dist_ba" in res["configs"]
+
+
+def test_acceptance_dist_ba_config_runs():
+    """Config 5 at a small size: ``bench_dist_ba`` in a subprocess over 8
+    gloo ranks on the CPU (no card here), the reference's row keys."""
+    rows = acceptance.dist_ba_config([3], torch.device("cpu"), kfs=3, points=64,
+                                     lines=16, iters=2, reps=1)
+    assert len(rows) == 1 and "error" not in rows[0], rows
+    assert rows[0]["device"] == "cpu"
+    assert set(rows[0]["ms_per_iter"]) == {"1", "2", "4", "8"}
+    assert rows[0]["scaling_efficiency"]["1"] == 1.0
