@@ -24,7 +24,7 @@ no network. Phases, each reported on its own lines:
    time, and the bound (the larger of bytes over the HBM rate and
    operations over the issue rate), all by
    ``gfplslam_torch/utils/kernel_bench.py``; FAST's record keeps these
-   EuRoC times under ``euroc`` once phase 8 puts the KITTI frame's there;
+   EuRoC times under ``euroc`` once phase 9 puts the KITTI frame's there;
 4. small VO: the 376x240 world of ``tests/test_vo_e2e.py`` through
    ``VisualOdometry`` (gates: not lost, accepted > 0.6, ATE < 0.06 m);
 5. full-width VO: the 752x480 EuRoC operating point with the default Config
@@ -46,7 +46,18 @@ no network. Phases, each reported on its own lines:
    ``mapping_step`` and of its local BA (ms per LM iteration, iterations
    until convergence). Gates: not lost, >= 1 closure, ATE with loop closure
    below ATE without, launch counts as designed;
-8. KITTI run_slam: acceptance config 3's world (KITTI 00 rig, 1241x376, 61
+8. full-capacity loop: the port's half of the slow tier
+   (``tests/test_torch_slam_full_capacity.py``): 752x480, the default
+   1024-point / 512-line budgets and the shipped 256-word vocabulary, the
+   40-frame textured loop world (seed 21) written as binary PGM under
+   ``build/chip_smoke/full_capacity/`` and decoded by the native loader
+   (equal to the rendered bytes), per-frame ``SLAMSystem.process`` then
+   ``finish()``: frames/s, keyframes, closures, ATE. Gates: not lost, >= 8
+   keyframes, ATE < 0.10 m, >= 1 closure, the active vocabulary read from
+   ``vocab_synth.npz``, the trajectory within 0.08 m ATE of the reference's
+   (``tests/data/ref_full_capacity_loop_traj.npy``), launches as the
+   keyframes and closures imply;
+9. KITTI run_slam: acceptance config 3's world (KITTI 00 rig, 1241x376, 61
    frames, forward motion, textured) written as a KITTI sequence of binary
    PGM files under ``build/chip_smoke/kitti/00/`` and run through
    ``apps/run_slam.py --kitti DIR --chunk 20`` (default Config and
@@ -59,18 +70,18 @@ no network. Phases, each reported on its own lines:
    threshold on frame 0's pyramid ([2,376,1241] and levels 1-3 batched),
    and its device time, bound, plain time and host time there (the
    record's);
-9. timed VO: ``run_slam --synthetic --timing --vo-only --frames 8``
+10. timed VO: ``run_slam --synthetic --timing --vo-only --frames 8``
    (``TimedVO``) against ``VisualOdometry`` on the same frames: equal
    trajectories, every ``time_*`` field > 0 on every tracked frame; then
-   ``run_slam --kitti DIR --timing --vo-only -n 20`` on phase 8's
+   ``run_slam --kitti DIR --timing --vo-only -n 20`` on phase 9's
    sequence: the median ms of each stage at KITTI width;
-10. vocab: the Hamming kernel exact at ``train_vocab``'s [8192, 4096] and
+11. vocab: the Hamming kernel exact at ``train_vocab``'s [8192, 4096] and
    [1000, 4096], its device time per assignment block, and ``kmajority``
    (20,000 descriptors, k = 4096, 5 iterations) on the card equal to the CPU;
-11. rectify: a two-frame EuRoC tree of raw PGM frames through ``load_euroc``
+12. rectify: a two-frame EuRoC tree of raw PGM frames through ``load_euroc``
    and the native C++ loader, and ``rectify_pair`` on the card, each within
    1e-3 of ``rectify_pair`` on the CPU;
-12. dist-ba: acceptance config 5's problem (16 keyframes, 8064 points,
+13. dist-ba: acceptance config 5's problem (16 keyframes, 8064 points,
    1008 lines) solved densely and by ``solve_ba_sharded`` over one NCCL
    rank and over four gloo ranks sharing the card (ranks started by
    ``parallel/multihost.py::launch``): poses within 5e-3 of the dense
@@ -78,11 +89,11 @@ no network. Phases, each reported on its own lines:
    correctness run: one card shows no scaling); then
    ``SLAMSystem.finish(run_global_ba=True)`` over four ranks on
    tests/test_dist.py's 80-keyframe map against the dense finish;
-13. batch-vo: ``run_vo_batch`` on 4 EuRoC worlds (752x480, default Config,
+14. batch-vo: ``run_vo_batch`` on 4 EuRoC worlds (752x480, default Config,
    24 frames each) with no group and over four gloo ranks: per sequence the
    integer outputs equal, poses within 0.08 m of each other, ATE < 5% of
    the path, launches as the frames imply;
-14. analysis-apps: ``assess``, ``ab_orb_pattern``, ``simulate_linecut`` and
+15. analysis-apps: ``assess``, ``ab_orb_pattern``, ``simulate_linecut`` and
    ``simulate_pl_loss`` through their ``run`` at the reference's defaults,
    against the JAX package's numbers where it has them, with the kernels'
    launches of the first two.
@@ -642,6 +653,81 @@ def phase_full_slam(dev, records):
     if out[True]["closures"] < 1 or not out[True]["ate"] < out[False]["ate"]:
         _fail("full SLAM gate failed (need >= 1 loop closure and ATE with loop "
               "closure below ATE without)")
+
+
+def phase_full_capacity_loop(dev, name, records, n: int = 40):
+    """The port's half of the slow tier (tests/test_torch_slam_full_capacity.py)
+    on the card: 752x480, the default 1024-point / 512-line budgets and the
+    shipped 256-word vocabulary, the textured loop world written as PGM and
+    decoded by the native loader, per-frame ``SLAMSystem.process`` then
+    ``finish()``, held to that test's gates and to the reference's
+    trajectory recorded in tests/data/ref_full_capacity_loop_traj.npy."""
+    import torch
+    from gfplslam_torch.config import Config, SlamParams
+    from gfplslam_torch.io import native_loader, synthetic
+    from gfplslam_torch.models import loop
+    from gfplslam_torch.models.slam import SLAMSystem
+    from gfplslam_torch.utils.kernel_bench import u8
+    from gfplslam_torch.utils.trajectory import ate_rmse
+
+    cfg = Config(slam=SlamParams(max_kf_num_frames=2, lc_kf_dist=6,
+                                 lc_kf_max_dist=3, lc_nkf_closest=2))
+    world = synthetic.make_world(n_frames=n, n_points=900, n_lines=90, seed=21,
+                                 motion="loop", cam=cfg.camera, textured=True)
+    rendered = [(u8(l), u8(r)) for l, r in _render(world, n, noise=1.0)]
+    root = HERE / "build" / "chip_smoke" / "full_capacity"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    paths = ([str(root / f"l_{i:04d}.pgm") for i in range(n)],
+             [str(root / f"r_{i:04d}.pgm") for i in range(n)])
+    for i, pair in enumerate(rendered):
+        for side in (0, 1):
+            _write_pgm(Path(paths[side][i]), pair[side])
+    frames = [None] * n
+    with native_loader.StereoLoader(*paths, cfg.camera.width, cfg.camera.height,
+                                    n_threads=2, queue_depth=4) as loader:
+        for k, il, ir in loader:
+            frames[k] = (il, ir)
+    for k in range(n):
+        for side in (0, 1):
+            if not np.array_equal(frames[k][side], rendered[k][side]):
+                _fail(f"full-capacity frame {k} decodes unlike the rendered frame")
+
+    slam = SLAMSystem(cfg, device=dev)
+    source = loop.VOCAB_SOURCE
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    for i, (il, ir) in enumerate(frames):
+        slam.process(il, ir, world.timestamps[i])
+    slam.finish()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _counts()
+    n_kf = len(slam.keyframe_trajectory)
+    closures = slam.n_loop_closures
+    ate = ate_rmse(slam.all_frame_trajectory, world.poses)
+    ref = np.load(HERE / "tests" / "data" / "ref_full_capacity_loop_traj.npy")
+    parity = ate_rmse(slam.all_frame_trajectory, ref)
+    expected = {"fast9_score": 2 * n,
+                "hamming_matrix": 2 + 4 * (n - 1) + 2 + 6 * (n_kf - 1) + 2 * closures}
+    print(f"[full-capacity-loop] 752x480 x{n}, 1024 pt / 512 ln, vocab "
+          f"{Path(source).name}, per-frame process: {secs:.3f} s = {n / secs:.3f} "
+          f"frames/s; lost {slam.vo.lost}, keyframes {n_kf}, loop closures "
+          f"{closures}, fused landmarks {slam.n_fused_landmarks}, ATE {ate:.5f} m, "
+          f"{parity:.5f} m from the reference's trajectory; device {name} ({_smi()})")
+    print(f"[full-capacity-loop] launches {launches} (expected {expected})")
+    for r in records:
+        r["launches_by_path"]["full_capacity_loop"] = launches[r["name"]]
+    if not source.endswith("vocab_synth.npz"):
+        _fail(f"full-capacity vocabulary is {source}, not the shipped vocab_synth.npz")
+    if slam.vo.lost or n_kf < 8 or not ate < 0.10 or closures < 1:
+        _fail("full-capacity gate failed (need not lost, >= 8 keyframes, "
+              "ATE < 0.10 m, >= 1 loop closure)")
+    if not parity < 0.08:
+        _fail(f"full-capacity trajectory {parity} m from the reference's (need < 0.08)")
+    if launches != expected:
+        _fail(f"full-capacity launch counts {launches} != {expected}")
 
 
 def _smi() -> str:
@@ -1221,6 +1307,7 @@ def main() -> None:
     _run("full-vo", phase_full_vo, dev, records)
     _run("small-slam", phase_small_slam, dev, records)
     _run("full-slam", phase_full_slam, dev, records)
+    _run("full-capacity-loop", phase_full_capacity_loop, dev, name, records)
     _run("kitti-run-slam", phase_kitti_run_slam, dev, name, records)
     _run("timed-vo", phase_timed_vo, dev, name, records)
     _run("vocab", phase_vocab, dev, name, records)

@@ -8,9 +8,10 @@ mechanically. Configs mirror BASELINE.json "configs":
 2. points+lines with good-line-cutting, pose-only           [EuRoC 752x480]
 3. full local BA sliding window, LC off                     [KITTI 1241x376]
 4. full SLAM: BA + BoW loop closure + PGO (firing)          [EuRoC circuit]
-5. distributed BA scaling: ``apps/bench_dist_ba.py`` in a subprocess,
-   one rank per card with two or more cards, else 8 gloo ranks on the CPU
-   (the reference's fallback to its virtual CPU mesh).
+5. distributed BA scaling: ``apps/bench_dist_ba.py`` in a subprocess, on
+   the card: one NCCL rank per card with two or more cards, else four gloo
+   ranks sharing the one card. The reference's 8 ranks on its virtual CPU
+   mesh run only under ``--device cpu``.
 
 Runs on the CUDA card unless ``--device`` names another; every timed run
 ends in a device synchronize.
@@ -34,8 +35,17 @@ def _u8(imgs):
 
 
 def _render(world, n, synthetic):
+    """Frames 0..n-1 as uint8 stacks, rendered in a process pool (each
+    frame's noise is seeded by its index, so they equal a loop's)."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+    from functools import partial
+
     import numpy as np
-    fr = [synthetic.render_frame(world, i, noise=1.0) for i in range(n)]
+    workers = min(8, os.cpu_count() or 1, n)
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        fr = list(ex.map(partial(synthetic.render_frame, world, noise=1.0), range(n)))
     return (_u8(np.stack([f[0] for f in fr])),
             _u8(np.stack([f[1] for f in fr])))
 
@@ -122,24 +132,32 @@ def dist_ba_config(seeds, device, kfs=16, points=8064, lines=1008, iters=8,
                    reps=3):
     """Config 5: landmark-sharded distributed BA scaling (a subprocess;
     same protocol as DIST_BA_r0N.json). The problem size defaults are the
-    reference's."""
+    reference's. On CUDA the ranks run on the card: one per card, or four
+    sharing a single card, where the row's scaling efficiency says nothing
+    about scaling (``shared_card``); 8 gloo ranks on the CPU otherwise."""
     import torch
-    ranks_on = ("cuda" if device.type == "cuda" and torch.cuda.device_count() >= 2
-                else "cpu")
+    ranks_on = device.type
+    if ranks_on == "cuda":
+        n_cards = torch.cuda.device_count()
+        n_ranks = n_cards if n_cards >= 2 else 4
+        shared = n_ranks > n_cards
+    else:
+        n_ranks, shared = 8, False
     rows = []
     for seed in seeds[:1]:  # one problem, median-of-reps inside the app
         out = subprocess.run(
             [sys.executable, "-m", "gfplslam_torch.apps.bench_dist_ba",
              "--kfs", str(kfs), "--points", str(points), "--lines", str(lines),
              "--iters", str(iters), "--reps", str(reps), "--seed", str(seed),
-             "--device", ranks_on],
+             "--device", ranks_on, "--ranks", str(n_ranks)],
             capture_output=True, text=True, timeout=3600)
         line = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
         if not line:
             rows.append({"seed": seed, "error": out.stderr[-400:]})
             continue
         data = json.loads(line[-1])
-        rows.append({"seed": seed, "device": ranks_on,
+        rows.append({"seed": seed, "device": ranks_on, "ranks": n_ranks,
+                     "shared_card": shared,
                      "ms_per_iter": data["ms_per_iter"],
                      "scaling_efficiency": data["scaling_efficiency"]})
     return rows

@@ -91,6 +91,14 @@ def vocab_source() -> str:
     return _VOCAB.source
 
 
+def __getattr__(name: str):
+    # ``VOCAB_SOURCE``: the reference's module global ("random-anchors", the
+    # path of the loaded file, or "set_vocab()"), read from the registry
+    if name == "VOCAB_SOURCE":
+        return vocab_source()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 def trained_sizes() -> list[int]:
     _VOCAB.ensure()
     return sorted(_VOCAB.trained)

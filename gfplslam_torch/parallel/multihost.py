@@ -59,10 +59,11 @@ def ensure_multihost(coordinator: str | None = None,
     ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``), then the reference's names
     (``JAX_COORDINATOR_ADDRESS`` / ``COORDINATOR_ADDRESS``,
     ``NUM_PROCESSES``, ``PROCESS_ID``), so one job script launches either
-    package. The group runs over NCCL when ``device`` is a CUDA device
-    (default: when a card is visible), each process on the card of its
-    ``LOCAL_RANK``, and over gloo otherwise. Returns True when more than
-    one rank is active after the call."""
+    package. The group runs over NCCL on the card (``device`` None or a
+    CUDA device), each process on the card of its ``LOCAL_RANK``, and over
+    gloo on the CPU only when ``device`` says so: with no card visible a
+    CUDA group raises. Returns True when more than one rank is active after
+    the call."""
     if dist.is_initialized():
         return dist.get_world_size() > 1
     if coordinator is None:
@@ -75,9 +76,10 @@ def ensure_multihost(coordinator: str | None = None,
         process_id = int(_env("RANK", "PROCESS_ID") or -1)
     if not (coordinator and num_processes > 1 and process_id >= 0):
         return False
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    if torch.device(device).type == "cuda":
+    if torch.device(device or "cuda").type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("ensure_multihost: no CUDA card is visible; "
+                               "pass device=\"cpu\" for a gloo group on the CPU")
         local = _env("LOCAL_RANK")
         torch.cuda.set_device(int(local) if local is not None
                               else process_id % torch.cuda.device_count())
@@ -125,14 +127,18 @@ def _rank_main(rank: int, fn, n_ranks: int, device: str, store: str,
         dist.destroy_process_group()
 
 
-def launch(fn, n_ranks: int, *args, device: str | torch.device = "cpu") -> list:
+def launch(fn, n_ranks: int, *args, device: str | torch.device = "cuda") -> list:
     """Run ``fn(*args)`` in ``n_ranks`` spawned processes on this machine,
     joined in one default process group (:func:`backend_for` picks its
-    backend; CPU ranks run one thread each), and return each rank's result
-    in rank order. ``fn`` must be importable by name, and its results are
-    saved with ``torch.save`` (move tensors to the CPU first). A failing
-    rank ends the others and raises here."""
+    backend), and return each rank's result in rank order. The ranks run on
+    the card unless ``device`` is ``"cpu"`` (one thread each). ``fn`` must
+    be importable by name, and its results are saved with ``torch.save``
+    (move tensors to the CPU first). A failing rank ends the others and
+    raises here."""
     device = str(device)
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("launch: no CUDA card is visible; pass "
+                           "device=\"cpu\" for ranks on the CPU")
     with tempfile.TemporaryDirectory(prefix="gfpl_ranks_") as tmp:
         mp.start_processes(_rank_main, nprocs=n_ranks, join=True,
                            start_method="spawn",

@@ -7,8 +7,10 @@ trajectory must be equal, not close."""
 
 import dataclasses
 import json
+import subprocess
 
 import numpy as np
+import pytest
 import torch
 
 from gfplslam_tpu.apps import acceptance as ref_acceptance
@@ -144,5 +146,26 @@ def test_acceptance_dist_ba_config_runs():
                                      lines=16, iters=2, reps=1)
     assert len(rows) == 1 and "error" not in rows[0], rows
     assert rows[0]["device"] == "cpu"
+    assert rows[0]["ranks"] == 8 and rows[0]["shared_card"] is False
     assert set(rows[0]["ms_per_iter"]) == {"1", "2", "4", "8"}
     assert rows[0]["scaling_efficiency"]["1"] == 1.0
+
+
+@pytest.mark.parametrize("n_cards,ranks,shared", [(1, 4, True), (4, 4, False)])
+def test_acceptance_dist_ba_config_on_the_card(monkeypatch, n_cards, ranks, shared):
+    """Under ``--device cuda`` config 5 runs its ranks on the card: four
+    sharing one card, or one per card, and the row says which. The
+    subprocess is replaced by a recorder (no card here)."""
+    argv = []
+
+    def fake_run(cmd, **kw):
+        argv.extend(cmd)
+        out = {"ms_per_iter": {"1": 1.0}, "scaling_efficiency": {"1": 1.0}}
+        return subprocess.CompletedProcess(cmd, 0, json.dumps(out), "")
+    monkeypatch.setattr(acceptance.subprocess, "run", fake_run)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: n_cards)
+    rows = acceptance.dist_ba_config([3], torch.device("cuda"))
+    assert argv[argv.index("--device") + 1] == "cuda"
+    assert argv[argv.index("--ranks") + 1] == str(ranks)
+    assert rows[0]["device"] == "cuda" and rows[0]["ranks"] == ranks
+    assert rows[0]["shared_card"] is shared

@@ -64,7 +64,8 @@ def batch():
                                           jnp.asarray(ts),
                                           mesh=ref_dist.make_mesh(4, axis="seq"))
     single = run_vo_batch(CFG, il, ir, ts, device=CPU)
-    ranks = multihost.launch(workers.vo_batch, 4, CFG, il, ir, ts, "cpu")
+    ranks = multihost.launch(workers.vo_batch, 4, CFG, il, ir, ts, "cpu",
+                             device="cpu")
     return dict(worlds=worlds, ref=(np.asarray(ref_poses), jax.tree.map(np.asarray, ref_aux)),
                 single=single, ranks=ranks)
 

@@ -88,7 +88,7 @@ def case():
                                   "cpu", 6)),
             (workers.finish_global_ba, (GLOBAL_CFG, convert.to_torch(_np(m_ref), CPU),
                                         "cpu"))]
-    ranks = multihost.launch(workers.run_jobs, N, jobs)
+    ranks = multihost.launch(workers.run_jobs, N, jobs, device="cpu")
     return dict(cam_ref=cam_ref, cam=cam, gt=gt, prob_ref=prob_ref, prob=prob,
                 m_ref=m_ref, gprob_ref=gprob_ref, gprob=gprob, ranks=ranks,
                 mesh=ref_dist.make_mesh(N))

@@ -4,7 +4,8 @@
 With no coordinator in the arguments or the environment the call is a
 no-op; two processes given the ``torchrun`` variables (or the reference's
 names for the same settings) join one gloo group of two ranks over
-``localhost``."""
+``localhost``. Without a card, a group on the card (the default) raises
+instead of falling back to the CPU, and so does ``launch``."""
 
 import os
 import socket
@@ -16,7 +17,10 @@ import numpy as np
 import pytest
 import torch.distributed as dist
 
+import torch
+
 from gfplslam_torch.apps import batch_eval
+from gfplslam_torch.parallel import multihost
 from gfplslam_torch.parallel.multihost import ensure_multihost
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -49,6 +53,25 @@ def _free_port() -> int:
 def test_no_coordinator_is_a_noop(clean_env):
     assert ensure_multihost(device="cpu") is False
     assert not dist.is_initialized()
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_card_group_without_a_card_raises(clean_env, no_card, device):
+    """The default group is on the card: with none visible the call
+    raises, naming ``device="cpu"``, and joins nothing."""
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ensure_multihost(f"127.0.0.1:{_free_port()}", 2, 0, device=device)
+    assert not dist.is_initialized()
+
+
+def test_launch_defaults_to_the_card(no_card):
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        multihost.launch(print, 2)
 
 
 @pytest.mark.parametrize("names", ["torchrun", "reference"])

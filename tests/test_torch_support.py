@@ -232,6 +232,55 @@ def test_load_vocab_installs_a_codebook(tmp_path, monkeypatch, with_df):
     assert torch.equal(vl, torch.from_numpy(arrays["vocab_l"].view(np.int32)))
 
 
+@pytest.mark.parametrize("shipped", [(), ("vocab_synth_128.npz",),
+                                     ("vocab_synth.npz", "vocab_synth4096.npz",
+                                      "vocab_synth_128.npz")])
+def test_vocab_source_name_follows_the_reference(monkeypatch, tmp_path, shipped):
+    """``loop.VOCAB_SOURCE`` is the reference's module global (the
+    counterpart of ``tests/test_vocab.py::test_default_vocab_is_trained``):
+    with the same codebook files shipped, the same file (each in its
+    package's data directory) or "random-anchors"; "set_vocab()" after
+    ``set_vocab`` and after ``load_vocab``. The name and ``vocab_source()``
+    read one registry."""
+    import glob
+    from gfplslam_tpu.models import loop as ref_loop
+    from gfplslam_torch.models import loop
+    ref_dir = os.path.join(os.path.dirname(os.path.dirname(ref_loop.__file__)), "data")
+    real_glob = glob.glob
+    monkeypatch.setattr(glob, "glob", lambda pattern: [
+        p for p in real_glob(pattern) if os.path.basename(p) in shipped])
+    monkeypatch.setattr(loop, "_VOCAB", loop._Vocabularies())
+    monkeypatch.setattr(ref_loop, "_TRAINED", {})
+    monkeypatch.setattr(ref_loop, "VOCAB_SOURCE", "random-anchors")
+    ref_loop._load_default_vocab()
+
+    def same():
+        got, want = loop.VOCAB_SOURCE, ref_loop.VOCAB_SOURCE
+        assert got == loop.vocab_source()
+        if os.path.isabs(want):
+            assert os.path.relpath(got, loop.DATA_DIR) == os.path.relpath(want, ref_dir)
+        else:
+            assert got == want
+        return got
+    first = same()
+    assert (first == "random-anchors") == (not shipped)
+    assert first.endswith("vocab_synth.npz") == ("vocab_synth.npz" in shipped)
+    rng = np.random.default_rng(3)
+    words = rng.integers(0, 2 ** 32, (16, 8), dtype=np.uint32)
+    loop.set_vocab(words, words)
+    ref_loop.set_vocab(words, words)
+    assert same() == "set_vocab()"
+    path = str(tmp_path / "codebook.npz")
+    np.savez(path, vocab_p=words, vocab_l=words)
+    monkeypatch.setattr(loop, "_VOCAB", loop._Vocabularies())
+    monkeypatch.setattr(ref_loop, "VOCAB_SOURCE", first)
+    loop.load_vocab(path)
+    ref_loop.load_vocab(path)
+    assert same() == "set_vocab()"
+    with pytest.raises(AttributeError):
+        loop.NO_SUCH_NAME
+
+
 @pytest.mark.parametrize("state", ["MapState", "LoopState"])
 def test_convert_round_trips_back_end_state(state):
     """Reference map / loop state -> port -> numpy, every leaf equal; the
