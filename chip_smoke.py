@@ -24,7 +24,7 @@ no network. Phases, each reported on its own lines:
    time, and the bound (the larger of bytes over the HBM rate and
    operations over the issue rate), all by
    ``gfplslam_torch/utils/kernel_bench.py``; FAST's record keeps these
-   EuRoC times under ``euroc`` once phase 9 puts the KITTI frame's there;
+   EuRoC times under ``euroc`` once phase 10 puts the KITTI frame's there;
 4. small VO: the 376x240 world of ``tests/test_vo_e2e.py`` through
    ``VisualOdometry`` (gates: not lost, accepted > 0.6, ATE < 0.06 m);
 5. full-width VO: the 752x480 EuRoC operating point with the default Config
@@ -57,7 +57,14 @@ no network. Phases, each reported on its own lines:
    ``vocab_synth.npz``, the trajectory within 0.08 m ATE of the reference's
    (``tests/data/ref_full_capacity_loop_traj.npy``), launches as the
    keyframes and closures imply;
-9. KITTI run_slam: acceptance config 3's world (KITTI 00 rig, 1241x376, 61
+9. ba-window: the local-BA problem the reference hands to ``solve_ba`` at
+   keyframe 13 of phase 8's world (``tests/data/full_capacity_kf13_window.npz``,
+   with the reference's f64 solution of it) solved on the card: the
+   reduced camera system at the first LM iteration's lambda, eigenvalues in
+   f64, smallest >= -1e-4 x largest; every keyframe position within 1e-2 m
+   of the f64 solution and the final error within 5e-3 of it; ms per LM
+   iteration (the BA reaches neither kernel: both counts stay 0);
+10. KITTI run_slam: acceptance config 3's world (KITTI 00 rig, 1241x376, 61
    frames, forward motion, textured) written as a KITTI sequence of binary
    PGM files under ``build/chip_smoke/kitti/00/`` and run through
    ``apps/run_slam.py --kitti DIR --chunk 20`` (default Config and
@@ -70,18 +77,18 @@ no network. Phases, each reported on its own lines:
    threshold on frame 0's pyramid ([2,376,1241] and levels 1-3 batched),
    and its device time, bound, plain time and host time there (the
    record's);
-10. timed VO: ``run_slam --synthetic --timing --vo-only --frames 8``
+11. timed VO: ``run_slam --synthetic --timing --vo-only --frames 8``
    (``TimedVO``) against ``VisualOdometry`` on the same frames: equal
    trajectories, every ``time_*`` field > 0 on every tracked frame; then
-   ``run_slam --kitti DIR --timing --vo-only -n 20`` on phase 9's
+   ``run_slam --kitti DIR --timing --vo-only -n 20`` on phase 10's
    sequence: the median ms of each stage at KITTI width;
-11. vocab: the Hamming kernel exact at ``train_vocab``'s [8192, 4096] and
+12. vocab: the Hamming kernel exact at ``train_vocab``'s [8192, 4096] and
    [1000, 4096], its device time per assignment block, and ``kmajority``
    (20,000 descriptors, k = 4096, 5 iterations) on the card equal to the CPU;
-12. rectify: a two-frame EuRoC tree of raw PGM frames through ``load_euroc``
+13. rectify: a two-frame EuRoC tree of raw PGM frames through ``load_euroc``
    and the native C++ loader, and ``rectify_pair`` on the card, each within
    1e-3 of ``rectify_pair`` on the CPU;
-13. dist-ba: acceptance config 5's problem (16 keyframes, 8064 points,
+14. dist-ba: acceptance config 5's problem (16 keyframes, 8064 points,
    1008 lines) solved densely and by ``solve_ba_sharded`` over one NCCL
    rank and over four gloo ranks sharing the card (ranks started by
    ``parallel/multihost.py::launch``): poses within 5e-3 of the dense
@@ -89,11 +96,11 @@ no network. Phases, each reported on its own lines:
    correctness run: one card shows no scaling); then
    ``SLAMSystem.finish(run_global_ba=True)`` over four ranks on
    tests/test_dist.py's 80-keyframe map against the dense finish;
-14. batch-vo: ``run_vo_batch`` on 4 EuRoC worlds (752x480, default Config,
+15. batch-vo: ``run_vo_batch`` on 4 EuRoC worlds (752x480, default Config,
    24 frames each) with no group and over four gloo ranks: per sequence the
    integer outputs equal, poses within 0.08 m of each other, ATE < 5% of
    the path, launches as the frames imply;
-15. analysis-apps: ``assess``, ``ab_orb_pattern``, ``simulate_linecut`` and
+16. analysis-apps: ``assess``, ``ab_orb_pattern``, ``simulate_linecut`` and
    ``simulate_pl_loss`` through their ``run`` at the reference's defaults,
    against the JAX package's numbers where it has them, with the kernels'
    launches of the first two.
@@ -730,6 +737,56 @@ def phase_full_capacity_loop(dev, name, records, n: int = 40):
         _fail(f"full-capacity launch counts {launches} != {expected}")
 
 
+def phase_ba_window(dev, name, reps: int = 3):
+    """The full-capacity world's keyframe-13 local-BA window on the card,
+    held to the reference's f64 solution stored beside it
+    (tests/test_torch_ba_observed_subspace.py records both and holds the
+    CPU to the same gates)."""
+    import torch
+    from gfplslam_torch.config import CameraParams, Config
+    from gfplslam_torch.models import ba, ba_core
+    from gfplslam_torch.utils import se3
+
+    z = np.load(HERE / "tests" / "data" / "full_capacity_kf13_window.npz")
+    cam = CameraParams(**{f: type(getattr(CameraParams, f))(z[f"cam_{f}"])
+                          for f in CameraParams.__dataclass_fields__})
+    prob = ba.BAProblem(*(torch.from_numpy(z[f]).to(dev) for f in ba.BAProblem._fields))
+    slam = Config().slam
+    _reset_counts()
+    bk = ba_core.build_blocks(cam, prob, ba_core.make_selectors(prob),
+                              ba._point_residuals, ba._line_residuals,
+                              se3.inverse_se3(prob.kf_pose), prob.pt_pos,
+                              prob.ln_sp, prob.ln_ep)
+    lam = torch.tensor(slam.lambda_lba_lm, device=dev)
+    s, _ = ba_core.schur_reduce(bk, *ba_core.landmark_inverses(bk, lam))
+    eig = torch.linalg.eigvalsh(0.5 * (s + s.T).double()).cpu().numpy()
+    res, ms = _sync_ms(lambda: ba.solve_ba(
+        cam, prob, lambda0=slam.lambda_lba_lm, lambda_k=slam.lambda_lba_k,
+        max_iters=slam.max_iters_lba), reps)
+    launches = _counts()
+    valid = z["kf_valid"]
+    dpos = float(np.linalg.norm(res.kf_pose.cpu().numpy()[valid, :3, 3]
+                                - z["f64_kf_pose"][valid, :3, 3], axis=-1).max())
+    derr = abs(float(res.err) - float(z["f64_err"]))
+    per_iter = statistics.median(ms) / slam.max_iters_lba
+    print(f"[ba-window] keyframe-13 window ({int(valid.sum())} KF, "
+          f"{int(z['pt_valid'].sum())} pt, {int(z['ln_valid'].sum())} ln, "
+          f"{int(z['po_valid'].sum())} + {int(z['lo_valid'].sum())} observations): "
+          f"S eigenvalues smallest {eig[0]:.6g}, largest {eig[-1]:.6g}, ratio "
+          f"{eig[0] / eig[-1]:.3e}; err {float(res.err):.6f} (f64 reference "
+          f"{float(z['f64_err']):.6f}, {derr:.3e} off) in {int(res.iters)} iterations "
+          f"(f64: {int(z['f64_iters'])}); largest keyframe deviation {dpos:.3e} m; "
+          f"{per_iter:.4f} ms per LM iteration ({slam.max_iters_lba} run, median of "
+          f"{reps}); launches {launches}; device {name} ({_smi()})")
+    if not eig[0] >= -1e-4 * eig[-1]:
+        _fail(f"BA window: reduced camera system indefinite ({eig[0]} vs {eig[-1]})")
+    if not (dpos <= 1e-2 and derr <= 5e-3):
+        _fail(f"BA window: keyframes {dpos} m, error {derr} from the f64 solution "
+              "(need <= 1e-2 m and <= 5e-3)")
+    if any(launches.values()):
+        _fail(f"BA window launched a kernel: {launches}")
+
+
 def _smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1308,6 +1365,7 @@ def main() -> None:
     _run("small-slam", phase_small_slam, dev, records)
     _run("full-slam", phase_full_slam, dev, records)
     _run("full-capacity-loop", phase_full_capacity_loop, dev, name, records)
+    _run("ba-window", phase_ba_window, dev, name)
     _run("kitti-run-slam", phase_kitti_run_slam, dev, name, records)
     _run("timed-vo", phase_timed_vo, dev, name, records)
     _run("vocab", phase_vocab, dev, name, records)

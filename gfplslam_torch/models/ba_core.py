@@ -6,7 +6,10 @@ of :func:`gfplslam_torch.models.ba.solve_ba`. As in the reference, the
 index-summed accumulations are one-hot matrix products (deterministic on
 the card, where a duplicate-index ``index_add_`` sums in no fixed order),
 the landmark block inverses are closed-form (adjugate 3x3, block-Schur 6x6),
-and the symmetric 3x3 spectra are Smith's closed form.
+and the symmetric 3x3 spectra are Smith's closed form, with one departure
+on purpose: :func:`landmark_inverses` inverts each landmark block on its
+observed subspace, the limit of the reference's 1e8 stiffness along the
+unobserved directions, which f32 cannot carry (see its docstring).
 """
 
 from __future__ import annotations
@@ -224,35 +227,66 @@ def _keep_projector3(h: torch.Tensor) -> torch.Tensor:
                                    torch.where(n_keep == 1, p_keep1, 0.0)))
 
 
-# stiffness added along unobservable directions
-_CUT_STIFFNESS = 1e8
-
-
 def _damped_diag(h: torch.Tensor, lam) -> torch.Tensor:
     return lam * torch.diag_embed(torch.clamp(
         torch.diagonal(h, dim1=-2, dim2=-1), min=1e-6))
 
 
+def _observed_inverse(a: torch.Tensor, proj: torch.Tensor, act: torch.Tensor,
+                      inv) -> torch.Tensor:
+    """P (P A P + s (I - P))^-1 P for the active blocks, zero for the rest.
+    The result is the same for any s > 0; s = A's mean diagonal keeps the
+    cut directions' fill on the scale of the observed curvature, so the
+    closed-form inverse is as well conditioned as A's observed part. (With
+    s = 1, random blocks with observed eigenvalues up to 5e4 came out up to
+    636x off: the inverse's O(1) part along the cut directions rounds into
+    the O(1e-5) observed part that P keeps.)"""
+    d = a.shape[-1]
+    eye = _eye(d, a)
+    s = (_trace(a) / d)[:, None, None]
+    m = proj @ a @ proj + s * (eye - proj)
+    act = act[:, None, None]
+    return torch.where(act, proj @ inv(torch.where(act, m, eye)) @ proj, 0.0)
+
+
 def landmark_inverses(bk: BABlocks, lam) -> tuple[torch.Tensor, torch.Tensor]:
     """Damped landmark block inverses restricted to observable
-    eigendirections (zero for empty slots): ~infinite stiffness along
-    sub-gate eigendirections holds low-parallax landmarks fixed along their
-    unobservable axes (reference docstring, models/ba_core.py:280-296)."""
-    eye3 = _eye(3, bk.hpp)
-    eye6 = _eye(6, bk.hll)
-    hpp_d = (bk.hpp + _damped_diag(bk.hpp, lam)
-             + _CUT_STIFFNESS * (eye3 - _keep_projector3(bk.hpp)))
+    eigendirections (zero for empty slots), which holds low-parallax
+    landmarks fixed along their unobservable axes (reference docstring,
+    models/ba_core.py:280-296).
+
+    Departure on purpose: with A the damped block and P the projector onto
+    its observed eigendirections, the reference inverts A + 1e8 (I - P);
+    this inverts on the observed subspace, P (P A P + s (I - P))^-1 P for
+    any s > 0, the limit of the reference's inverse as its stiffness grows
+    without bound. The step along a cut direction is then exactly zero
+    (the reference's is ~1e-8 of it). The reason is f32: a cut direction
+    is not axis-aligned, so 1e8 (I - P) rounds every entry of the sum by
+    ~4, which swamps the observed entries (~0.1), and the reduced camera
+    system turns indefinite. On the full-capacity loop world's keyframe-13 window
+    (tests/data/full_capacity_kf13_window.npz, 2043 of 2048 point blocks
+    with a cut direction) the f32 stiffness form was 8.9e-2 (median) and
+    1083 (worst block) from the f64 limit, the reduced camera system's
+    eigenvalues reached -2.97e8 against a largest of 6.51e7, and the LM
+    ended 0.14 m and 0.10-0.12 in error from the reference's f64 solve, by
+    thread count. This form is 1.1e-7 and 2.9e-6 from the limit there, the
+    system's smallest eigenvalue is 0, and the solve ends within 1.5e-3 m
+    of the f64 one at 1 and 8 threads; on random blocks with one or two cut
+    directions, <= 2.5e-7 (median) and 2.2e-4 (worst) where the stiffness
+    form gave up to 9.0e-3 and 8.3 (tests/test_torch_ba_observed_subspace.py).
+    The reference's 1e8 in f64 is itself 4e-5 to 1.1e-3 (median) from the
+    limit. Where every direction is observed (P = I) the two forms are the
+    same expression. A block with no observed direction (P = 0) gets a
+    zero inverse and does not move."""
+    hpp_inv = _observed_inverse(bk.hpp + _damped_diag(bk.hpp, lam),
+                                _keep_projector3(bk.hpp), bk.pt_act, inv3)
     # line blocks: per-endpoint observability (block-diagonal projector)
     pa = _keep_projector3(bk.hll[:, :3, :3])
     pb = _keep_projector3(bk.hll[:, 3:, 3:])
     z = torch.zeros_like(pa)
     proj_l = torch.cat([torch.cat([pa, z], -1), torch.cat([z, pb], -1)], -2)
-    hll_d = (bk.hll + _damped_diag(bk.hll, lam)
-             + _CUT_STIFFNESS * (eye6 - proj_l))
-    pt_act = bk.pt_act[:, None, None]
-    ln_act = bk.ln_act[:, None, None]
-    hpp_inv = torch.where(pt_act, inv3(torch.where(pt_act, hpp_d, eye3)), 0.0)
-    hll_inv = torch.where(ln_act, inv6(torch.where(ln_act, hll_d, eye6)), 0.0)
+    hll_inv = _observed_inverse(bk.hll + _damped_diag(bk.hll, lam), proj_l,
+                                bk.ln_act, inv6)
     return hpp_inv, hll_inv
 
 

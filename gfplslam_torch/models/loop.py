@@ -514,22 +514,29 @@ def optimize_pose_graph(kf_pose: torch.Tensor, kf_valid: torch.Tensor,
     mask2 = mask[:, None] & mask[None, :]
     reg = torch.diag(torch.where(mask, 1e-8, 1.0))
     pose_i, pose_j = kf_pose[ei], kf_pose[ej]
+    # edge -> KF one-hots: the sums over edges are matrix products, whose
+    # order is fixed; a duplicate-index index_add_ on the card sums in no
+    # fixed order, and the closure's poses would differ from run to run
+    idx = torch.arange(k, device=ei.device)
+    oh_i = (ei[:, None] == idx).to(kf_pose.dtype)
+    oh_j = (ej[:, None] == idx).to(kf_pose.dtype)
+
+    def pair_blocks(oh_a, oh_b, ja, jb):
+        """sum_e [a_e = a][b_e = b] ja_e^T jb_e as [K, 6, K, 6]."""
+        m = torch.einsum("eri,erj->eij", ja, jb)
+        t = (oh_a[:, :, None, None] * m[:, None]).reshape(m.shape[0], -1)
+        return (t.T @ oh_b).reshape(k, 6, 6, k).permute(0, 1, 3, 2)
 
     def gn_step(x):
         r, ji, jj = _edge_terms(pose_i, pose_j, x[ei], x[ej], edges.t_ij, same)
         r = r * w[:, None]
         ji = ji * w[:, None, None]
         jj = jj * w[:, None, None]
-        # H as [K*K, 6, 6] blocks, summed in the reference's order
-        h = x.new_zeros((k * k, 6, 6))
-        for a, b, ja, jb in ((ei, ei, ji, ji), (ej, ej, jj, jj),
-                             (ei, ej, ji, jj), (ej, ei, jj, ji)):
-            h.index_add_(0, a * k + b, torch.einsum("eri,erj->eij", ja, jb))
-        b = x.new_zeros((k, 6))
-        b.index_add_(0, ei, torch.einsum("eri,er->ei", ji, r))
-        b.index_add_(0, ej, torch.einsum("eri,er->ei", jj, r))
-        hf = h.reshape(k, k, 6, 6).permute(0, 2, 1, 3).reshape(6 * k, 6 * k)
-        hf = torch.where(mask2, hf, 0.0) + reg
+        h = (pair_blocks(oh_i, oh_i, ji, ji) + pair_blocks(oh_j, oh_j, jj, jj)
+             + pair_blocks(oh_i, oh_j, ji, jj) + pair_blocks(oh_j, oh_i, jj, ji))
+        b = (oh_i.T @ torch.einsum("eri,er->ei", ji, r)
+             + oh_j.T @ torch.einsum("eri,er->ei", jj, r))
+        hf = torch.where(mask2, h.reshape(6 * k, 6 * k), 0.0) + reg
         bf = torch.where(mask, b.reshape(-1), 0.0)
         dx = torch.linalg.solve_ex(hf, bf)[0].reshape(k, 6)
         return x - torch.where(free[:, None], dx, 0.0)

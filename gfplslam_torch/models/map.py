@@ -4,8 +4,11 @@ Port of ``gfplslam_tpu/models/map.py`` (``MapHandler``'s data layer,
 mapHandler.cpp): KF insertion + pose composition (:113-187), KF<->map data
 association (:189-772), local-map formation (:789-857), landmark culling
 (:2550-2630), loop-landmark fusion (:4425-4714) and the local-BA window
-(:1108-1215). The map is one ``MapState`` NamedTuple of fixed-capacity
-tensors; every function returns a new state and leaves its input as it was.
+(:1108-1215), whose gauge departs from the reference's on purpose where
+the landmark budget leaves the oldest window KF without point
+observations (:func:`_anchor_gauge`). The map is one ``MapState``
+NamedTuple of fixed-capacity tensors; every function returns a new state
+and leaves its input as it was.
 
 The reference's ``.at[...].set(mode="drop")`` scatters go through
 :func:`set_rows`, which reproduces them exactly: a negative index wraps, an
@@ -672,9 +675,40 @@ def build_local_ba_problem(cfg: Config, m: MapState, window: int = 0,
         po_uv=m.po_uv[po_i], po_sigma2=m.po_sigma2[po_i], po_valid=po_ok,
         lo_kf=kf2slot[m.lo_kf[lo_i]], lo_lm=ln2slot[m.lo_lm[lo_i]],
         lo_le=m.lo_le[lo_i], lo_sigma2=m.lo_sigma2[lo_i], lo_valid=lo_ok)
+    if not global_ba:
+        prob = prob._replace(kf_free=_anchor_gauge(prob, kw))
     po_src = torch.where(po_ok, po_i, -1)
     lo_src = torch.where(lo_ok, lo_i, -1)
     return prob, win_ids, p_ids, l_ids, po_src, lo_src
+
+
+# point observations a window KF needs to serve as the gauge (a pose is
+# fixed by three points)
+GAUGE_MIN_OBS = 3
+
+
+def _anchor_gauge(prob: BAProblem, kw: int) -> torch.Tensor:
+    """``kf_free`` with every window KF up to the oldest one that has
+    ``GAUGE_MIN_OBS`` point observations in the problem frozen.
+
+    Departure on purpose: the reference freezes the oldest window KF only
+    (:1119). The window keeps the newest ``n_obs_pt // 2`` landmarks, so
+    that KF can be left without a point observation; it then fixes nothing
+    and the rest of the window floats, held only by its damping. The
+    reference's f32 landmark inverses, whose 1e8 stiffness rounded most
+    steps away, never took that freedom; inverted on their observed
+    subspace (``ba_core.landmark_inverses``) they do: on ``bench.py``'s
+    full-SLAM world, frame 22's window (the gauge KF with 0 of 3144 point
+    observations) moved its seven free keyframes 0.42-0.51 m as one, and
+    the reference's own f64 solve does the same. Where the oldest KF has
+    its observations, as in every window until the landmark budget binds,
+    this is the reference's gauge."""
+    slot = torch.arange(kw, device=prob.po_kf.device)
+    n_obs = ((prob.po_kf[:, None] == slot) & prob.po_valid[:, None]).sum(0)
+    anchored = prob.kf_valid[:kw] & (n_obs >= GAUGE_MIN_OBS)
+    gauge = torch.where(anchored.any(), torch.argmax(anchored.to(torch.uint8)),
+                        torch.argmax(prob.kf_valid[:kw].to(torch.uint8)))
+    return torch.cat([prob.kf_free[:kw] & (slot > gauge), prob.kf_free[kw:]])
 
 
 def apply_ba_result(cfg: Config, m: MapState, res, win_ids, p_ids, l_ids

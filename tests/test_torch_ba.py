@@ -10,14 +10,17 @@ test_residuals_and_jacobians, and f32 sums run in another order); the Schur redu
 back-substitution 1e-4 relative.
 
 The whole LM solve is held to the reference's own gates (tests/test_ba.py)
-and to the reference's poses within 1e-2, not tighter: landmarks seen at
-low parallax keep two observable directions, and their damped blocks, with
-1e8 stiffness along the cut one, have condition numbers near 6e5. Their f32
-inverses then depend on the order of the products: on this problem the
-reference's own ``inv3`` gives an entry of 3.79e-3 eagerly and 4.23e-3
-under ``jax.jit`` (FMA contraction), against 5.77e-3 in f64. The steps of
-those landmarks, and through them the LM path, differ between any two
-implementations."""
+and to the reference's solve in f64 (``jax.enable_x64``): poses within
+1e-2, the same inlier marks. Not to its f32 solve: the reference holds a
+landmark block's unobserved direction with a 1e8 stiffness, which in f32
+rounds the block's observed entries away, so its f32 solve ends at error
+0.02928 (noise 0) and 0.11228 (noise 0.3) where its f64 solve ends at
+0.00292 and 0.08368. The port inverts on the observed subspace, the limit
+of that stiffness (ba_core.landmark_inverses), and ends within 2e-4
+relative of the f64 errors. The iteration counts are not compared: both converge, but the
+last steps change the error by less than f32 resolves (1e-5 relative, the
+convergence tolerance), so the f64 solve stops at 11 iterations and the
+port at 9 and 13."""
 
 import numpy as np
 import pytest
@@ -197,7 +200,11 @@ def solved():
     out = {}
     for noise in (0.0, 0.3):
         c = _case(noise)
-        c["ref"] = jax.tree.map(np.asarray, ref_ba.solve_ba(c["cam_ref"], c["prob_ref"]))
+        with jax.enable_x64(True):
+            prob64 = jax.tree.map(lambda x: jnp.asarray(
+                x.astype(np.float64) if x.dtype == np.float32 else x),
+                jax.tree.map(np.asarray, c["prob_ref"]))
+            c["ref"] = jax.tree.map(np.asarray, ref_ba.solve_ba(c["cam_ref"], prob64))
         c["port"] = ba.solve_ba(c["cam"], c["prob"])
         out[noise] = c
     return out
@@ -268,13 +275,16 @@ def test_finish_with_global_ba():
 
 
 def test_solve_ba_agrees_with_reference(solved):
-    """Poses within 1e-2 of the reference's (see the module docstring);
-    the same iteration count; line inlier marks equal, point marks on
-    >= 95% of the observations (measured: 96.9%)."""
+    """Poses within 1e-2 of the reference's f64 solve, and the final error
+    within 1e-3 relative (measured 1.3e-4 and 3.3e-5); both converge within
+    the iteration budget (see the module docstring); line inlier marks
+    equal, point marks on >= 95% of the observations (measured: 100%)."""
     for c in solved.values():
         ref, res = c["ref"], c["port"]
+        assert ref.kf_pose.dtype == np.float64
         assert np.abs(res.kf_pose.numpy() - ref.kf_pose).max() < 1e-2
-        assert int(res.iters) == int(ref.iters)
+        assert abs(float(res.err) - float(ref.err)) < 1e-3 * float(ref.err)
+        assert int(res.iters) < 20 and int(ref.iters) < 20
         np.testing.assert_array_equal(res.lo_inlier.numpy(), ref.lo_inlier)
         valid = np.asarray(c["prob_ref"].po_valid)
         agree = (res.po_inlier.numpy() == ref.po_inlier)[valid].mean()

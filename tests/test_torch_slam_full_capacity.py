@@ -13,14 +13,15 @@ reference's, recorded in ``tests/data/ref_full_capacity_loop_traj.npy``.
 decoded frames: the same gates, and the fixture still its trajectory.
 ``chip_smoke.py [full-capacity-loop]`` runs the port's half on the card.
 
-Both halves sit at the edge of the ATE gate on this world. The reference
-on the CPU ends at 0.1105 m (its own test, tests/test_slam_full_capacity_e2e.py,
-fails the same way). The port on the CPU depends on torch's thread count:
-the local BA's reduced camera system is indefinite in f32 in both packages
-(a landmark block's 1e8 stiffness along its unobserved direction rounds
-away its observed entries), and at 8 threads one LM step sends a keyframe
-kilometres away (ATE 526.7 m) where 6 threads end at 0.095 m, 0.051 m from
-the reference. On an H100 the port ends at 0.087 m, 0.038 m from it.
+The reference on the CPU ends at 0.1105 m, outside the ATE gate (its own
+test, tests/test_slam_full_capacity_e2e.py, fails the same way). The port
+passes on the CPU at any thread count: 0.07176 / 0.07482 / 0.07262 m at
+1 / 6 / 8 threads, 0.054-0.057 m from the reference. Until its local BA
+inverted each landmark block on its observed subspace
+(``ba_core.landmark_inverses``; tests/test_torch_ba_observed_subspace.py),
+the result depended on rounding: the reference's 1e8 stiffness along a
+block's unobserved direction rounds its observed entries away in f32, and
+at 8 threads one LM step sent a keyframe 2 km away (ATE 526.7 m).
 
 Record the fixture again (a few minutes of the reference's XLA compiles
 on the CPU)::
