@@ -15,14 +15,18 @@ no network. Phases, each reported on its own lines:
    prints the seconds it took and each kernel's ``ptxas`` report;
 3. kernels: the FAST-9 and Hamming kernels against their plain PyTorch
    versions on the card, bit-exact (``torch.equal``) at the main-path inputs
-   (the VO's shapes, and the six shapes one SLAM keyframe gives the Hamming
-   kernel, with the masks its callers pass) and at the edge cases a redesign
-   can break; then, at the main-path shapes, each kernel's device time
-   (launches captured in a CUDA graph over buffers that exceed the L2 cache,
-   replayed between two events) per VO frame and, for Hamming, per
-   keyframe, its wrapper's host time per call, the plain version's device
-   time, and the bound (the larger of bytes over the HBM rate and
-   operations over the issue rate), all by
+   (the VO's shapes, the frame's pair of matrices in one launch, and the six
+   shapes one SLAM keyframe gives the Hamming kernel, with the masks its
+   callers pass) and at the edge cases a redesign can break (Hamming: tile
+   and wave edges, odd widths, empty matrices, grouped launches of 1-4
+   mixed problems); the card's popcount issue rates (m16n8k256 .and.popc
+   on the binary tensor cores, ``__popc`` on the CUDA cores); then, at the
+   main-path shapes, each kernel's device time (launches captured in a CUDA
+   graph over buffers that exceed the L2 cache, replayed between two
+   events) per VO frame and, for Hamming, per keyframe, its wrapper's host
+   time per call, the plain version's device time, and the bound (the
+   larger of bytes over the HBM rate and operations over the issue rate;
+   Hamming's at the measured rates), all by
    ``gfplslam_torch/utils/kernel_bench.py``; FAST's record keeps these
    EuRoC times under ``euroc`` once phase 10 puts the KITTI frame's there;
 4. small VO: the 376x240 world of ``tests/test_vo_e2e.py`` through
@@ -31,8 +35,9 @@ no network. Phases, each reported on its own lines:
    through ``run_vo_scan`` (one warm-up, median of 3 timed runs; gates: not
    lost, accepted > 0.6, ATE < 5% of the path), with both kernels' launch
    counts of the first timed run checked against the design (2 FAST launches
-   per frame, 2 Hamming calls on the first frame and 4 on every tracked
-   frame); the record's launches per frame come from those counts;
+   per frame; 1 Hamming launch on the first frame, for its stereo pair of
+   matrices, and 2 on every tracked frame, the stereo and the cross-frame
+   pair); the record's launches per frame come from those counts;
 6. small SLAM: the 376x240 world and Config of ``tests/test_slam_e2e.py``
    (10 frames, seed 11) through the per-frame ``SLAMSystem.process`` (gates:
    not lost, >= 2 keyframes, keyframe ATE < 0.08 m);
@@ -83,7 +88,8 @@ no network. Phases, each reported on its own lines:
    ``run_slam --kitti DIR --timing --vo-only -n 20`` on phase 10's
    sequence: the median ms of each stage at KITTI width;
 12. vocab: the Hamming kernel exact at ``train_vocab``'s [8192, 4096] and
-   [1000, 4096], its device time per assignment block, and ``kmajority``
+   [1000, 4096], its device time per assignment block beside its bytes and
+   operations bounds, and ``kmajority``
    (20,000 descriptors, k = 4096, 5 iterations) on the card equal to the CPU;
 13. rectify: a two-frame EuRoC tree of raw PGM frames through ``load_euroc``
    and the native C++ loader, and ``rectify_pair`` on the card, each within
@@ -209,18 +215,27 @@ def _check_fast(label, imgs, need_corner):
 
 
 def _check_hamming(label, a, b, va, vb, expect=None):
-    """Kernel == plain (and == ``expect`` where given); returns max abs diff."""
+    """Kernel == plain (and == ``expect`` where given); returns the max abs
+    diff."""
+    return _check_grouped(label, [(a, b, va, vb)], expect)
+
+
+def _check_grouped(label, problems, expect=None):
+    """One kernel launch for all of ``problems``, each matrix == plain (and
+    == ``expect`` where given); returns the max abs diff."""
     import torch
-    from gfplslam_torch.ops.hamming import hamming_cuda, hamming_matrix_torch
-    out = hamming_cuda(a, b, va, vb)
-    ref = hamming_matrix_torch(a, b, va, vb)
+    from gfplslam_torch.ops.hamming import hamming_cuda_many, hamming_matrix_torch
+    outs = hamming_cuda_many(problems)
     torch.cuda.synchronize()
-    err = int((out - ref).abs().max()) if out.numel() else 0
-    if not torch.equal(out, ref):
-        _fail(f"Hamming kernel != plain at {label}: "
-              f"{int((out != ref).sum())} entries differ")
-    if expect is not None and not bool((ref == expect).all()):
-        _fail(f"Hamming plain version != {expect} at {label}")
+    err = 0
+    for i, (out, p) in enumerate(zip(outs, problems)):
+        ref = hamming_matrix_torch(*p)
+        err = max(err, int((out - ref).abs().max()) if out.numel() else 0)
+        if not torch.equal(out, ref):
+            _fail(f"Hamming kernel != plain at {label}, matrix {i}: "
+                  f"{int((out != ref).sum())} entries differ")
+        if expect is not None and not bool((ref == expect).all()):
+            _fail(f"Hamming plain version != {expect} at {label}")
     print(f"[kernels] Hamming {label}: exact")
     return err
 
@@ -231,7 +246,7 @@ def phase_kernels(dev):
     filled in by the full-width phase)."""
     import torch
     from gfplslam_torch.ops import kernels
-    from gfplslam_torch.ops.hamming import hamming_cuda, hamming_matrix_torch
+    from gfplslam_torch.ops.hamming import hamming_matrices, hamming_matrix_torch
     from gfplslam_torch.utils import kernel_bench as kb
 
     rng = np.random.default_rng(2024)
@@ -267,6 +282,40 @@ def phase_kernels(dev):
     for n in kb.HAMMING_SHAPES:
         ham_err = max(ham_err, _check_hamming(f"{n}x{n} masks both",
                                               desc(n), desc(n), mask(n), mask(n)))
+    # the frame's pair in one launch, as the frame path calls it
+    ham_err = max(ham_err, _check_grouped(
+        "frame pair 1024x1024 + 512x512 masks both",
+        [(desc(n), desc(n), mask(n), mask(n)) for n in kb.HAMMING_SHAPES]))
+    # tile edges (16-row fragments, 64 x 128 tiles) and odd widths, which
+    # take the kernel's 4-byte stores: every pair, masks none / rows / both
+    edges = (1, 15, 16, 17, 127, 128, 129)
+    for i, n in enumerate(edges):
+        for j, m in enumerate(edges):
+            side = ("none", "rows", "both")[(i + j) % 3]
+            ham_err = max(ham_err, _check_hamming(
+                f"{n}x{m} masks {side}", desc(n), desc(m),
+                mask(n) if side != "none" else None,
+                mask(m) if side == "both" else None))
+    for n, m in ((0, 17), (0, 128), (130, 0), (0, 0)):
+        ham_err = max(ham_err, _check_hamming(f"{n}x{m} empty", desc(n), desc(m),
+                                              mask(n), mask(m)))
+    # grouped launches of 1-4 problems, mixed shapes, empty ones among them
+    groups = {
+        "1: 129x1025 rows": [(desc(129), desc(1025), mask(129), None)],
+        "2: 17x4096 both + 1024x15 none": [
+            (desc(17), desc(4096), mask(17), mask(4096)),
+            (desc(1024), desc(15), None, None)],
+        "3: 0x5 + 128x129 both + 1x1 none": [
+            (desc(0), desc(5), mask(0), mask(5)),
+            (desc(128), desc(129), mask(128), mask(129)), (desc(1), desc(1), None, None)],
+        "4: 16x16 + 127x1025 rows + 64x4096 both + 3x0": [
+            (desc(16), desc(16), None, None),
+            (desc(127), desc(1025), mask(127), None),
+            (desc(64), desc(4096), mask(64), mask(4096)),
+            (desc(3), desc(0), None, None)],
+    }
+    for label, problems in groups.items():
+        ham_err = max(ham_err, _check_grouped(f"grouped {label}", problems))
     # every pair of edge sizes, the four maskings spread as a Latin square
     sides = ("both", "a only", "b only", "none")
     sizes = (1, 7, 1023, 1025)
@@ -292,26 +341,32 @@ def phase_kernels(dev):
     # device times at the shapes one full-width frame gives each kernel
     lib = kernels.load()
     fast = _fast_times(main_fast)
+    rates = kb.hamming_rates(lib, dev)
+    print(f"[kernels] Hamming rates: binary tensor cores "
+          f"{rates['bmma_per_s']:.6e} m16n8k256 .and.popc products/s "
+          f"({kb.ENTRIES_PER_BMMA * rates['bmma_per_s']:.6e} entries/s); CUDA "
+          f"cores {rates['popc_per_s']:.6e} __popc/s "
+          f"({rates['popc_per_s'] / 8:.6e} entries/s at 8 per entry); device "
+          f"{torch.cuda.get_device_name(0)} ({_smi()})")
     main_ham = kb.hamming_main_inputs(dev, rng)
+    pair = list(main_ham.values())
     ham_ms = kb.hamming_device_ms(lib, main_ham)
-    ham_host = statistics.median(kb.host_ms(lambda: hamming_cuda(*args))
-                                 for args in main_ham.values())
+    ham_host = kb.host_ms(lambda: hamming_matrices(pair))
     plain_ham_ms = 2 * sum(kb.graph_ms([lambda: hamming_matrix_torch(*args)] * 10)
                            for args in main_ham.values())
-    ham_bound_ms, ham_by = kb.hamming_bound(main_ham)
+    ham_bound = kb.hamming_bound(main_ham, rates, repeat=2)
     kf_ms = kb.hamming_launches_ms(lib, main_kf)
-    kf_bound_ms = kb.hamming_bytes_ms(main_kf)
+    kf_bound = kb.hamming_bound(main_kf, rates)
     kf_plain_ms = sum(kb.graph_ms([lambda: hamming_matrix_torch(*args)] * 3)
                       for args in main_kf.values())
-    print(f"[kernels] Hamming per SLAM keyframe (6 launches: "
-          f"{', '.join(f'{a.shape[0]}x{b.shape[0]}' for a, b, _, _ in main_kf.values())}): "
-          f"device {1e3 * kf_ms:.3f} us, bytes bound {1e3 * kf_bound_ms:.3f} us, "
-          f"share of bound {kf_bound_ms / kf_ms:.3f}; plain {kf_plain_ms:.5f} ms")
     library = _hamming_library(lib, main_ham, main_kf)
     _print_times("FAST per EuRoC frame", fast)
-    _print_times("Hamming per full-width frame", dict(
-        ms=ham_ms, bound_ms=ham_bound_ms, bound_by=ham_by, plain_ms=plain_ham_ms,
-        host_ms=ham_host))
+    _print_hamming("per full-width frame (2 launches: the stereo and the "
+                   "cross-frame pair)", ham_ms, ham_bound, plain_ham_ms)
+    print(f"[kernels] Hamming wrapper host {ham_host:.5f} ms per paired call")
+    _print_hamming(f"per SLAM keyframe (6 launches: "
+                   f"{', '.join(f'{a.shape[0]}x{b.shape[0]}' for a, b, _, _ in main_kf.values())})",
+                   kf_ms, kf_bound, kf_plain_ms)
     return [
         # the EuRoC frame's times until the KITTI phase puts its own here
         dict({"name": "fast9_score", "route": "cuda",
@@ -324,14 +379,26 @@ def phase_kernels(dev):
          # capacity-bound: a frame's shapes are the same at every width
          "frame_shapes": [f"{n}x{n}" for n in kb.HAMMING_SHAPES] * 2,
          "max_abs_err": float(ham_err), "ms": ham_ms, "host_ms": ham_host,
-         "plain_ms": plain_ham_ms, "bound_ms": ham_bound_ms,
-         "bound_by": ham_by, "library_ms": library["frame_ms"],
+         "plain_ms": plain_ham_ms, "bound_ms": ham_bound["bound_ms"],
+         "bound_by": ham_bound["bound_by"], "bytes_bound_ms": ham_bound["bytes_ms"],
+         "ops_bound_ms": ham_bound["ops_ms"], "rates": rates,
+         "library_ms": library["frame_ms"],
          "library_call": library["call"], "ms_per_keyframe": kf_ms,
          "plain_ms_per_keyframe": kf_plain_ms,
-         "bound_ms_per_keyframe": kf_bound_ms,
+         "bound_ms_per_keyframe": kf_bound["bound_ms"],
+         "bound_by_per_keyframe": kf_bound["bound_by"],
+         "bytes_bound_ms_per_keyframe": kf_bound["bytes_ms"],
+         "ops_bound_ms_per_keyframe": kf_bound["ops_ms"],
          "library_ms_per_keyframe": library["keyframe_ms"],
          "library_ms_by_shape": library["by_shape"]},
     ]
+
+
+def _print_hamming(label: str, ms: float, bound: dict, plain_ms: float) -> None:
+    print(f"[kernels] Hamming {label}: device {ms:.5f} ms; bytes bound "
+          f"{bound['bytes_ms']:.5f} ms, operations bound {bound['ops_ms']:.5f} ms "
+          f"(measured rate), share of bound {bound['bound_ms'] / ms:.3f} "
+          f"({bound['bound_by']}); plain {plain_ms:.5f} ms")
 
 
 def _fast_times(inputs: dict) -> dict:
@@ -485,14 +552,16 @@ def phase_full_vo(dev, records):
         samples.append(time.perf_counter() - t0)
         if rep == 0:
             launches = _counts()
-    expected = {"fast9_score": 2 * n, "hamming_matrix": 4 * n - 2}
+    # one paired launch per frame's stereo matrices, one per tracked frame's
+    # cross-frame matrices
+    expected = {"fast9_score": 2 * n, "hamming_matrix": 1 + 2 * (n - 1)}
     print(f"[full-vo] launches in one run: {launches} (expected {expected})")
     if launches != expected:
         _fail(f"kernel launch counts {launches} != expected {expected}")
     # per frame, from this run's counts: FAST on every frame; Hamming on
-    # every tracked frame, after the first frame's two stereo calls
+    # every tracked frame, after the first frame's stereo launch
     per_frame = {"fast9_score": launches["fast9_score"] / n,
-                 "hamming_matrix": (launches["hamming_matrix"] - 2) / (n - 1)}
+                 "hamming_matrix": (launches["hamming_matrix"] - 1) / (n - 1)}
     for r in records:
         r["launches_by_path"] = {"full_vo": launches[r["name"]]}
         r["launches_per_frame"] = per_frame[r["name"]]
@@ -628,7 +697,7 @@ def phase_full_slam(dev, records):
         ate = ate_rmse(slam.all_frame_trajectory, world.poses)
         closures = slam.n_loop_closures
         expected = {"fast9_score": 2 * n,
-                    "hamming_matrix": (2 + 4 * (n - 1) + 2 + (6 if lc else 4) * (n_kf - 1)
+                    "hamming_matrix": (1 + 2 * (n - 1) + 2 + (6 if lc else 4) * (n_kf - 1)
                                        + 2 * closures)}
         tag = "lc" if lc else "no-lc"
         print(f"[full-slam] {tag}: 752x480 x{n}, chunk {chunk}: {secs:.3f} s = "
@@ -636,7 +705,7 @@ def phase_full_slam(dev, records):
               f"loop closures {closures}, fused landmarks {slam.n_fused_landmarks}, "
               f"ATE {ate:.5f} m; counters {slam.counters}")
         print(f"[full-slam] {tag}: launches {launches} (expected {expected}: "
-              f"FAST 2 per frame; Hamming 2 + 4 per tracked frame, 2 at KF0, "
+              f"FAST 2 per frame; Hamming 1 + 2 per tracked frame, 2 at KF0, "
               f"{6 if lc else 4} per later keyframe, 2 per closure)")
         if slam.vo.lost or launches != expected:
             _fail(f"full SLAM ({tag}) lost or launch counts {launches} != {expected}")
@@ -717,7 +786,7 @@ def phase_full_capacity_loop(dev, name, records, n: int = 40):
     ref = np.load(HERE / "tests" / "data" / "ref_full_capacity_loop_traj.npy")
     parity = ate_rmse(slam.all_frame_trajectory, ref)
     expected = {"fast9_score": 2 * n,
-                "hamming_matrix": 2 + 4 * (n - 1) + 2 + 6 * (n_kf - 1) + 2 * closures}
+                "hamming_matrix": 1 + 2 * (n - 1) + 2 + 6 * (n_kf - 1) + 2 * closures}
     print(f"[full-capacity-loop] 752x480 x{n}, 1024 pt / 512 ln, vocab "
           f"{Path(source).name}, per-frame process: {secs:.3f} s = {n / secs:.3f} "
           f"frames/s; lost {slam.vo.lost}, keyframes {n_kf}, loop closures "
@@ -866,7 +935,7 @@ def phase_kitti_run_slam(dev, name, records, n: int = 61):
           f"(host clock, native loader and outputs included)")
     path = float(np.linalg.norm(np.diff(world.poses[:, :3, 3], axis=0), axis=1).sum())
     expected = {"fast9_score": 2 * frames,
-                "hamming_matrix": 2 + 4 * (frames - 1) + 2 + 6 * (n_kf - 1)
+                "hamming_matrix": 1 + 2 * (frames - 1) + 2 + 6 * (n_kf - 1)
                 + 2 * closures}
     print(f"[kitti-run-slam] ATE {summary.get('ate_rmse')} m of path {path:.4f} m; "
           f"launches {launches} (expected {expected})")
@@ -975,7 +1044,7 @@ def phase_vocab(dev, name, records, n_desc: int = 20000):
     import torch
     from gfplslam_torch.apps import train_vocab
     from gfplslam_torch.ops import kernels
-    from gfplslam_torch.ops.hamming import hamming_cuda, hamming_matrix
+    from gfplslam_torch.ops.hamming import hamming_matrix
     from gfplslam_torch.utils import kernel_bench as kb
 
     rng = np.random.default_rng(7)
@@ -994,9 +1063,16 @@ def phase_vocab(dev, name, records, n_desc: int = 20000):
     kern = kb.hamming_launches_ms(lib, block)
     step = kb.graph_ms([lambda: torch.argmin(hamming_matrix(blocks[8192], words),
                                              dim=1)] * 10)
-    bound = kb.hamming_bytes_ms(block)
+    ham = next(r for r in records if r["name"] == "hamming_matrix")
+    bound = kb.hamming_bound(block, ham["rates"])
+    ham.update(ms_per_block=kern, bound_ms_per_block=bound["bound_ms"],
+               bound_by_per_block=bound["bound_by"],
+               bytes_bound_ms_per_block=bound["bytes_ms"],
+               ops_bound_ms_per_block=bound["ops_ms"])
     print(f"[vocab] one assignment block 8192x4096: Hamming kernel {kern:.5f} ms "
-          f"(bytes bound {bound:.5f} ms, share {bound / kern:.3f}), with the "
+          f"(bytes bound {bound['bytes_ms']:.5f} ms, operations bound "
+          f"{bound['ops_ms']:.5f} ms at the rates of phase 3, share of bound "
+          f"{bound['bound_ms'] / kern:.3f}, {bound['bound_by']}), with the "
           f"argmin {step:.5f} ms; device {name} ({_smi()})")
 
     desc = rng.integers(0, 2**32, size=(n_desc, 8), dtype=np.uint32)
@@ -1237,7 +1313,8 @@ def phase_batch_vo(dev, name, records, n_seq: int = 4, n: int = 24):
     ts = np.stack([w.timestamps.astype(np.float32) for w in worlds])
     print(f"[batch-vo] rendered {n_seq} x {n} frames 752x480 in "
           f"{time.perf_counter() - t0:.1f} s")
-    expected = {"fast9_score": n_seq * 2 * n, "hamming_matrix": n_seq * (4 * n - 2)}
+    expected = {"fast9_score": n_seq * 2 * n,
+                "hamming_matrix": n_seq * (1 + 2 * (n - 1))}
 
     run_vo_batch(cfg, il[:1, :2], ir[:1, :2], ts[:1, :2], device=dev)  # warm-up
     torch.cuda.synchronize()
@@ -1300,7 +1377,7 @@ def phase_analysis_apps(dev, name, records):
     _reset_counts()
     summary, _ = assess.run([])
     launches = _counts()
-    want = {"fast9_score": 2 * 6, "hamming_matrix": 2 * 6 + 2 * 5}
+    want = {"fast9_score": 2 * 6, "hamming_matrix": 6 + 5}
     print(f"[analysis-apps] assess (6 frames, 376x240): {json.dumps(summary)}; "
           f"launches {launches} (expected {want})")
     if not finite(summary) or launches != want or not 0 < summary["match_precision"] <= 1:

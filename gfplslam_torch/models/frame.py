@@ -4,7 +4,8 @@ Port of ``gfplslam_tpu/models/frame.py`` (``StereoFrame``,
 stereoFrame.cpp:340-767, 1019-1227, 1375-1484). Both cameras run as one
 batch through every detection op (the reference's ``vmap`` over cameras):
 the FAST kernel launches once for level 0 of both cameras and once for
-levels 1+ of both cameras, padded to the level-1 shape.
+levels 1+ of both cameras, padded to the level-1 shape; the Hamming kernel
+forms the points' and the lines' stereo matrices in one launch.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from gfplslam_torch.ops import fast as fast_ops
 from gfplslam_torch.ops import lbd as lbd_ops
 from gfplslam_torch.ops import lsd as lsd_ops
 from gfplslam_torch.ops import orb as orb_ops
-from gfplslam_torch.ops.hamming import BIG, hamming_matrix
+from gfplslam_torch.ops.hamming import BIG, hamming_matrices, hamming_matrix
 from gfplslam_torch.ops.matching import mutual_best
 from gfplslam_torch.ops.pyramid import (build_pyramid_padded, gaussian_blur,
                                         level_shapes)
@@ -248,15 +249,27 @@ def _subpixel_refine(pyr_l: torch.Tensor, pyr_r: torch.Tensor,
     return ur_ref, ~edge
 
 
+def _point_problem(feat_l: CameraFeatures, feat_r: CameraFeatures):
+    return feat_l.pt_desc, feat_r.pt_desc, feat_l.pt_valid, feat_r.pt_valid
+
+
+def _line_problem(feat_l: CameraFeatures, feat_r: CameraFeatures):
+    return feat_l.ln_desc, feat_r.ln_desc, feat_l.ln_valid, feat_r.ln_valid
+
+
 def stereo_match_points(cam: CameraParams, cfg: Config,
                         feat_l: CameraFeatures, feat_r: CameraFeatures,
-                        pyr_l: torch.Tensor, pyr_r: torch.Tensor) -> StereoPoints:
+                        pyr_l: torch.Tensor, pyr_r: torch.Tensor,
+                        dist: torch.Tensor | None = None) -> StereoPoints:
     """Row-banded epipolar Hamming matching + sub-pixel refine + median gate
-    (extractStereoFeatures_ORBSLAM point block, stereoFrame.cpp:443-630)."""
+    (extractStereoFeatures_ORBSLAM point block, stereoFrame.cpp:443-630).
+    ``dist`` is the points' masked Hamming matrix where the caller already
+    formed it; without it, it is formed here."""
     th_orb = 80.0  # (TH_HIGH+TH_LOW)/2, :457
     sf = cfg.orb.scale_factor
-    d = hamming_matrix(feat_l.pt_desc, feat_r.pt_desc,
-                       feat_l.pt_valid, feat_r.pt_valid).float()
+    if dist is None:
+        dist = hamming_matrix(*_point_problem(feat_l, feat_r))
+    d = dist.float()
     vr = feat_r.pt_xy[:, 1][None, :]
     vl = feat_l.pt_xy[:, 1][:, None]
     row_r = 2.0 * sf ** feat_r.pt_level.float()[None, :]
@@ -330,13 +343,15 @@ def _max_eig3(m: torch.Tensor) -> torch.Tensor:
 
 
 def stereo_match_lines(cam: CameraParams, cfg: Config,
-                       feat_l: CameraFeatures,
-                       feat_r: CameraFeatures) -> StereoLines:
+                       feat_l: CameraFeatures, feat_r: CameraFeatures,
+                       dist: torch.Tensor | None = None) -> StereoLines:
     """Mutual-best LBD matching + distinctiveness gate + geometric gates +
-    intersection disparity (line block, stereoFrame.cpp:632-767)."""
+    intersection disparity (line block, stereoFrame.cpp:632-767). ``dist``
+    as in :func:`stereo_match_points`, for the lines."""
     tr = cfg.tracking
-    d = hamming_matrix(feat_l.ln_desc, feat_r.ln_desc,
-                       feat_l.ln_valid, feat_r.ln_valid).float()
+    if dist is None:
+        dist = hamming_matrix(*_line_problem(feat_l, feat_r))
+    d = dist.float()
     m = mutual_best(d)
     # distinctiveness: (d2 - d1) must exceed MAD(d2-d1)*desc_th_l; duplicated
     # minima count as gap 0 (knnMatch's second neighbour includes ties)
@@ -410,9 +425,16 @@ def process_stereo_pair(img_l: torch.Tensor, img_r: torch.Tensor, cfg: Config,
     pyrs = build_pyramid_padded(imgs, cfg.orb.nlevels, cfg.orb.scale_factor)
     feats = detect_camera_features(imgs, cfg, fast_th, pyrs)
     feat_l, feat_r = take(feats, 0), take(feats, 1)
-    pts = stereo_match_points(cfg.camera, cfg, feat_l, feat_r, pyrs[0], pyrs[1])
-    lns = (stereo_match_lines(cfg.camera, cfg, feat_l, feat_r)
-           if cfg.stvo.has_lines else empty_lines(cfg, imgs.device))
+    if not cfg.stvo.has_lines:
+        pts = stereo_match_points(cfg.camera, cfg, feat_l, feat_r, pyrs[0], pyrs[1])
+        return StereoFrame(points=pts, lines=empty_lines(cfg, imgs.device),
+                           feat_l=feat_l)
+    # both stereo matrices in one kernel launch
+    d_pt, d_ln = hamming_matrices([_point_problem(feat_l, feat_r),
+                                   _line_problem(feat_l, feat_r)])
+    pts = stereo_match_points(cfg.camera, cfg, feat_l, feat_r, pyrs[0], pyrs[1],
+                              d_pt)
+    lns = stereo_match_lines(cfg.camera, cfg, feat_l, feat_r, d_ln)
     return StereoFrame(points=pts, lines=lns, feat_l=feat_l)
 
 

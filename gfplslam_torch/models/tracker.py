@@ -24,7 +24,7 @@ from gfplslam_torch.models import linecut, pose_opt
 from gfplslam_torch.models.frame import StereoFrame, estimate_line_uncertainty
 from gfplslam_torch.ops import camera as cam_ops
 from gfplslam_torch.ops import matching as match_ops
-from gfplslam_torch.ops.hamming import BIG, hamming_matrix
+from gfplslam_torch.ops.hamming import BIG, hamming_matrices, hamming_matrix
 from gfplslam_torch.utils import se3
 from gfplslam_torch.utils.robust import masked_stdv_mad_nozero
 
@@ -90,13 +90,24 @@ def _dist2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(dx * dx + dy * dy)
 
 
+def _point_problem(prev: StereoFrame, curr: StereoFrame):
+    return prev.points.desc, curr.points.desc, prev.points.valid, curr.points.valid
+
+
+def _line_problem(prev: StereoFrame, curr: StereoFrame):
+    return prev.lines.desc, curr.lines.desc, prev.lines.valid, curr.lines.valid
+
+
 def cross_match_points(cfg: Config, prev: StereoFrame, curr: StereoFrame,
-                       dt_pred: torch.Tensor):
+                       dt_pred: torch.Tensor, dist: torch.Tensor | None = None):
     """Point half of crossFrameMatching_Hybrid (:451-599): Hamming matrix
     gated by search radius + 10 px projection window, best-per-target dedup,
-    budget."""
+    budget. ``dist`` is the points' masked Hamming matrix where the caller
+    already formed it; without it, it is formed here."""
     p, c = prev.points, curr.points
-    d = hamming_matrix(p.desc, c.desc, p.valid, c.valid).float()
+    if dist is None:
+        dist = hamming_matrix(*_point_problem(prev, curr))
+    d = dist.float()
     p_curr = (dt_pred[:3, :3] @ p.p3d[:, :, None])[:, :, 0] + dt_pred[:3, 3]
     proj = cam_ops.project_batch(cfg.camera, p_curr)
     gate = ((_dist2(proj, c.xy) <= 10.0)
@@ -112,11 +123,15 @@ def cross_match_points(cfg: Config, prev: StereoFrame, curr: StereoFrame,
     return pts, torch.where(pm.valid, pm.idx, torch.full_like(pm.idx, -1))
 
 
-def cross_match_lines(cfg: Config, prev: StereoFrame, curr: StereoFrame):
+def cross_match_lines(cfg: Config, prev: StereoFrame, curr: StereoFrame,
+                      dist: torch.Tensor | None = None):
     """Line half of crossFrameMatching_Hybrid (:605-686): mutual best +
-    distinctiveness (MAD) + budget-distance threshold."""
+    distinctiveness (MAD) + budget-distance threshold. ``dist`` as in
+    :func:`cross_match_points`, for the lines."""
     lp, lc = prev.lines, curr.lines
-    dl = hamming_matrix(lp.desc, lc.desc, lp.valid, lc.valid).float()
+    if dist is None:
+        dist = hamming_matrix(*_line_problem(prev, curr))
+    dl = dist.float()
     lm = match_ops.mutual_best(dl)
     dl1 = dl.amin(1)
     dl2 = torch.where(dl <= dl1[:, None], torch.full_like(dl, float("inf")),
@@ -136,8 +151,11 @@ def cross_frame_matching(cfg: Config, prev: StereoFrame, curr: StereoFrame,
                          dt_pred: torch.Tensor) -> CrossMatches:
     """Hybrid cross-frame matching (crossFrameMatching_Hybrid, :451-695).
     ``dt_pred`` is the constant-velocity T_curr<-prev used for projection."""
-    pts, pt_curr_idx = cross_match_points(cfg, prev, curr, dt_pred)
-    lns, ln_curr_idx = cross_match_lines(cfg, prev, curr)
+    # both cross-frame matrices in one kernel launch
+    d_pt, d_ln = hamming_matrices([_point_problem(prev, curr),
+                                   _line_problem(prev, curr)])
+    pts, pt_curr_idx = cross_match_points(cfg, prev, curr, dt_pred, d_pt)
+    lns, ln_curr_idx = cross_match_lines(cfg, prev, curr, d_ln)
     return CrossMatches(points=pts, lines=lns, pt_curr_idx=pt_curr_idx,
                         ln_curr_idx=ln_curr_idx)
 

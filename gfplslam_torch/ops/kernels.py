@@ -38,7 +38,8 @@ _I = ctypes.c_int
 # source -> its C entry points: (name, argtypes); each returns cudaError_t
 KERNELS = {
     "fast_score.cu": {"gfpl_fast_score": (_P, _P, _I, _I, _I, _P, _P)},
-    "hamming.cu": {"gfpl_hamming": (_P, _P, _P, _P, _P, _I, _I, _P)},
+    "hamming.cu": {"gfpl_hamming": (_I, _P, _P),
+                   "gfpl_hamming_rate": (_I, _I, _I, _P, _P)},
 }
 
 _libs: dict[Path, SimpleNamespace] = {}

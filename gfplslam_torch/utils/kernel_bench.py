@@ -12,7 +12,9 @@ needs a CUDA card; the input builders and the bounds also run on the CPU.
 - :func:`fast_bound`, :func:`hamming_bound`: the least time the card could
   take for one full-width frame's work, the larger of the bytes over the
   HBM rate and the operations these inputs need over the issue rate of
-  their type (H100 SXM, NVIDIA's data sheet).
+  their type (H100 SXM, NVIDIA's data sheet; for the Hamming kernel's
+  popcounts, which the data sheet does not rate, the rates
+  :func:`hamming_rates` measures on the card).
 - :data:`HAMMING_LIBRARY`: single PyTorch calls that compute the Hamming
   kernel's function from the descriptors unpacked to bits (``torch.cdist``
   with p=0, and a +-1 bf16 matrix product), timed beside the kernel as its
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from gfplslam_torch.ops import kernels
+from gfplslam_torch.ops.hamming import problem_table
 
 MAIN_THRESHOLD = 20.0        # OrbParams.fast_th; the adaptive loop keeps 10..50
 HBM_BYTES_PER_S = 3.35e12
@@ -43,8 +46,11 @@ L2_BYTES = 50e6
 # the final max.
 FAST_COMPASS_OPS_PER_PX = 4 + 8 + 7
 FAST_SCORE_OPS_PER_PX = 12 + 2 * 47 + 8
-HAMMING_SHAPES = (1024, 512)  # stereo points, stereo lines; then the same
-                              # two again for cross-frame matching
+HAMMING_SHAPES = (1024, 512)  # stereo points, stereo lines (one launch);
+                              # then the same two again for cross-frame
+                              # matching (one launch)
+HAMMING_BLOCK = (8192, 4096)  # train_vocab's assignment block x codebook
+ENTRIES_PER_BMMA = 16 * 8     # one m16n8k256: 128 entries of 256 bits
 # what one keyframe of the SLAM back-end asks of the Hamming kernel at the
 # default Config (label, rows, columns, masks the caller passes): the
 # frame's points and lines against the whole landmark pools
@@ -182,21 +188,21 @@ def fast_launch_list(lib, imgs, thr):
     return [functools.partial(launch, *bufs[i % copies]) for i in range(n)]
 
 
-def hamming_launch_list(lib, a, b, va, vb):
-    """Raw ``gfpl_hamming`` launches of library ``lib`` over rotating
-    output buffers; a ``None`` mask is passed as a null pointer."""
-    n, m = a.shape[0], b.shape[0]
-    copies, count = rotation(4.0 * n * m)
-    outs = [torch.empty((n, m), dtype=torch.int32, device=a.device)
-            for _ in range(copies)]
-    pa, pb = (None if v is None else v.data_ptr() for v in (va, vb))
+def hamming_launch_list(lib, problems):
+    """Raw ``gfpl_hamming`` launches of library ``lib``, one launch for all
+    of ``problems`` (up to 4), over rotating output buffers."""
+    nbytes = sum(4.0 * a.shape[0] * b.shape[0] for a, b, _, _ in problems)
+    copies, count = rotation(nbytes)
+    dev = problems[0][0].device
+    outs = [[torch.empty((a.shape[0], b.shape[0]), dtype=torch.int32, device=dev)
+             for a, b, _, _ in problems] for _ in range(copies)]
+    tables = [problem_table(problems, o) for o in outs]
 
-    def launch(out):
-        kernels.check(lib.gfpl_hamming(a.data_ptr(), b.data_ptr(), pa, pb,
-                                       out.data_ptr(), n, m,
-                                       kernels.stream_ptr(a.device)),
-                      "gfpl_hamming")
-    return [functools.partial(launch, outs[i % copies]) for i in range(count)]
+    def launch(table, _outs):  # the launch holds the buffers its table names
+        kernels.check(lib.gfpl_hamming(len(problems), table,
+                                       kernels.stream_ptr(dev)), "gfpl_hamming")
+    return [functools.partial(launch, tables[i % copies], outs[i % copies])
+            for i in range(count)]
 
 
 def fast_pyramid_inputs(pair, cfg, dev) -> dict:
@@ -254,6 +260,16 @@ def hamming_keyframe_inputs(dev, rng) -> dict:
     return out
 
 
+def hamming_block_inputs(dev, rng) -> dict:
+    """``train_vocab``'s assignment block against its codebook
+    (``HAMMING_BLOCK``), random descriptors, unmasked as it calls the kernel:
+    label -> (a, b, None, None)."""
+    n, m = HAMMING_BLOCK
+    a, b = (torch.as_tensor(rng.integers(-2**31, 2**31, (k, 8)),
+                            dtype=torch.int32, device=dev) for k in (n, m))
+    return {f"block {n}x{m}": (a, b, None, None)}
+
+
 def fast_device_ms(lib, inputs: dict, thr) -> float:
     """Device time of one frame's FAST launches with library ``lib``."""
     return sum(graph_ms(fast_launch_list(lib, x, thr)) for x in inputs.values())
@@ -262,12 +278,45 @@ def fast_device_ms(lib, inputs: dict, thr) -> float:
 def hamming_launches_ms(lib, inputs: dict) -> float:
     """Device time of one Hamming launch per entry of ``inputs`` (one
     keyframe's six for ``hamming_keyframe_inputs``)."""
-    return sum(graph_ms(hamming_launch_list(lib, *args)) for args in inputs.values())
+    return sum(graph_ms(hamming_launch_list(lib, [args])) for args in inputs.values())
 
 
 def hamming_device_ms(lib, inputs: dict) -> float:
-    """Device time of one tracked frame's four Hamming launches."""
-    return 2 * hamming_launches_ms(lib, inputs)
+    """Device time of one tracked frame's Hamming work: the two shapes of
+    ``inputs`` in one launch (the stereo pair), twice (the cross-frame
+    pair)."""
+    return 2 * graph_ms(hamming_launch_list(lib, list(inputs.values())))
+
+
+def hamming_rates(lib, dev) -> dict:
+    """Issue rates measured on the card by ``gfpl_hamming_rate``, one launch
+    of 4 blocks of 256 threads per SM each (one wave), timed between two
+    events after a warm-up, the median of 3: ``bmma_per_s``, m16n8k256
+    .and.popc products (128 entries of 256 bits each) per second on the
+    binary tensor cores; ``popc_per_s``, ``__popc`` per second on the CUDA
+    cores."""
+    blocks = 4 * torch.cuda.get_device_properties(dev).multi_processor_count
+    sink = torch.empty(blocks * 256, dtype=torch.int32, device=dev)
+    out = {}
+    for key, tensor, iters, per_iter in (("bmma_per_s", 1, 8192, 8 * 8),
+                                         ("popc_per_s", 0, 16384, 8 * 256)):
+        def run(n):
+            kernels.check(lib.gfpl_hamming_rate(tensor, blocks, n, sink.data_ptr(),
+                                                kernels.stream_ptr(dev)),
+                          "gfpl_hamming_rate")
+        run(64)
+        torch.cuda.synchronize()
+        secs = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run(iters)
+            end.record()
+            end.synchronize()
+            secs.append(1e-3 * start.elapsed_time(end))
+        out[key] = blocks * per_iter * iters / statistics.median(secs)
+    return out
 
 
 def fast_candidates(imgs, threshold: float) -> int:
@@ -308,10 +357,21 @@ def hamming_bytes_ms(inputs: dict) -> float:
     return 1e3 * nbytes / HBM_BYTES_PER_S
 
 
-def hamming_bound(inputs: dict) -> tuple[float, str]:
-    """(ms, "bytes") for one tracked frame's four matrices (each shape of
-    ``inputs`` twice). The popcounts do not set it: on this card they run
-    on the binary tensor cores (``mma.m16n8k256 .b1 .and.popc``, one 256-bit
-    descriptor per k step), whose rate the data sheet does not publish, so
-    no operation bound is stated; the least time is the one the bytes need."""
-    return 2 * hamming_bytes_ms(inputs), "bytes"
+def hamming_ops_ms(inputs: dict, rates: dict) -> float:
+    """Least ms of the popcounts of one matrix per entry of ``inputs`` on
+    the card's fastest unit for them, the binary tensor cores, at their
+    measured rate (:func:`hamming_rates`; 128 entries per m16n8k256
+    product)."""
+    entries = sum(a.shape[0] * b.shape[0] for a, b, _, _ in inputs.values())
+    return 1e3 * entries / (ENTRIES_PER_BMMA * rates["bmma_per_s"])
+
+
+def hamming_bound(inputs: dict, rates: dict, repeat: int = 1) -> dict:
+    """The least time of one matrix per entry of ``inputs``, ``repeat``
+    times (2 for a tracked frame: the same two shapes for the stereo and the
+    cross-frame pair): bytes at the HBM rate, operations at the measured
+    popcount rate, and the larger of the two."""
+    byte_ms = repeat * hamming_bytes_ms(inputs)
+    op_ms = repeat * hamming_ops_ms(inputs, rates)
+    return {"bytes_ms": byte_ms, "ops_ms": op_ms, "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations"}

@@ -110,6 +110,50 @@ def test_hamming_kernel_equals_plain(dev, n, m, masks, fill):
         assert bool((out == fill).all())
 
 
+def _problem(dev, rng, n, m, masks):
+    a = torch.as_tensor(rng.integers(-2**31, 2**31, (n, 8)), dtype=torch.int32, device=dev)
+    b = torch.as_tensor(rng.integers(-2**31, 2**31, (m, 8)), dtype=torch.int32, device=dev)
+    va = torch.as_tensor(rng.random(n) < 0.7, device=dev) if masks != "none" else None
+    vb = torch.as_tensor(rng.random(m) < 0.7, device=dev) if masks == "both" else None
+    return a, b, va, vb
+
+
+_TILE_EDGES = (1, 15, 16, 17, 127, 128, 129)
+
+
+@pytest.mark.parametrize("n,m,masks", [
+    *[(n, m, ("none", "rows", "both")[(i + j) % 3])
+      for i, n in enumerate(_TILE_EDGES) for j, m in enumerate(_TILE_EDGES)],
+    (0, 17, "both"), (130, 0, "both"), (0, 0, "none")])
+def test_hamming_kernel_at_tile_edges(dev, n, m, masks):
+    """The 64 x 128 output tiles' and 16-row fragments' edges, odd widths
+    (4-byte stores) and empty matrices: bit-exact, one launch unless the
+    matrix is empty."""
+    problem = _problem(dev, np.random.default_rng(n * 131 + m), n, m, masks)
+    before = hamming.hamming_cuda.launches
+    out = hamming.hamming_matrix(*problem)
+    assert hamming.hamming_cuda.launches == before + (1 if n * m else 0)
+    assert tuple(out.shape) == (n, m)
+    assert torch.equal(out, hamming.hamming_matrix_torch(*problem))
+
+
+@pytest.mark.parametrize("shapes", [
+    [(1024, 1024, "both"), (512, 512, "both")],
+    [(129, 1025, "rows")],
+    [(17, 4096, "both"), (1024, 15, "none"), (0, 5, "both")],
+    [(16, 16, "none"), (127, 1025, "rows"), (64, 4096, "both"), (3, 0, "none")]])
+def test_hamming_grouped_launch(dev, shapes):
+    """1 to 4 problems of mixed shapes in one launch (the frame's pair
+    first): each matrix bit-exact."""
+    rng = np.random.default_rng(len(shapes))
+    problems = [_problem(dev, rng, *s) for s in shapes]
+    before = hamming.hamming_cuda.launches
+    outs = hamming.hamming_matrices(problems)
+    assert hamming.hamming_cuda.launches == before + 1
+    for out, p in zip(outs, problems):
+        assert torch.equal(out, hamming.hamming_matrix_torch(*p))
+
+
 def test_kernels_refuse_wrong_inputs(dev):
     with pytest.raises(ValueError):
         fast.fast_score_cuda(torch.zeros(2, 8, 8, device=dev, dtype=torch.float64), 20.0)

@@ -180,3 +180,29 @@ def test_port_frame_meets_reference_accuracy_gates(case):
     assert n_ln >= 3
     z = sf.lines.sp3d.numpy()[sf.lines.valid.numpy()][:, 2]
     assert np.all(z > 0.1) and np.all(z < 100.0)
+
+
+def _equal_tuples(got, want):
+    for name, g, w in zip(got._fields, got, want):
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("kind", ["points", "lines"])
+def test_stereo_matchers_take_the_precomputed_matrix(case, kind):
+    """``process_stereo_pair`` forms both stereo matrices in one call and
+    hands each to its matcher: a matcher given the matrix equals the matcher
+    that forms it, on the reference's features."""
+    cfg, feats, pyrs = case["cfg"], case["feats"], case["pyrs"]
+    fl, fr = _feat(feats, 0), _feat(feats, 1)
+    if kind == "points":
+        args = (cfg.camera, cfg, fl, fr, torch.from_numpy(pyrs[0]),
+                torch.from_numpy(pyrs[1]))
+        dist = frame.hamming_matrices([(fl.pt_desc, fr.pt_desc, fl.pt_valid,
+                                        fr.pt_valid)])[0]
+        match = frame.stereo_match_points
+    else:
+        args = (cfg.camera, cfg, fl, fr)
+        dist = frame.hamming_matrices([(fl.ln_desc, fr.ln_desc, fl.ln_valid,
+                                        fr.ln_valid)])[0]
+        match = frame.stereo_match_lines
+    _equal_tuples(match(*args, dist), match(*args))

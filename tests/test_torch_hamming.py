@@ -64,6 +64,44 @@ def test_hamming_dispatch_by_device_only():
         hamming.hamming_cuda(a, a)
 
 
+@pytest.mark.parametrize("shapes", [
+    [(5, 9)], [(0, 7), (33, 1)], [(128, 129), (7, 0), (1, 1)],
+    [(64, 300), (17, 15), (0, 0), (100, 60)]])
+def test_hamming_matrices_one_plain_matrix_per_problem(shapes):
+    """The grouped form (one kernel launch on the card) on the CPU: one
+    plain matrix per problem, masks none / rows / columns / both, empty and
+    ragged shapes among them; each equal to the reference's masked
+    matrix."""
+    rng = np.random.default_rng(len(shapes))
+    problems, refs = [], []
+    for i, (n, m) in enumerate(shapes):
+        a, b = _desc(n, 10 * i), _desc(m, 10 * i + 1)
+        va = rng.random(n) < 0.7 if i % 2 else None
+        vb = rng.random(m) < 0.7 if i % 4 in (2, 3) or i == 0 else None
+        problems.append((_t(a), _t(b), None if va is None else torch.from_numpy(va),
+                         None if vb is None else torch.from_numpy(vb)))
+        refs.append(np.asarray(ref_hamming.hamming_matrix(
+            jnp.asarray(a), jnp.asarray(b),
+            None if va is None else jnp.asarray(va),
+            None if vb is None else jnp.asarray(vb), use_pallas=False)))
+    got = hamming.hamming_matrices(problems)
+    assert len(got) == len(shapes)
+    for g, p, want, (n, m) in zip(got, problems, refs, shapes):
+        assert g.dtype == torch.int32 and tuple(g.shape) == (n, m)
+        assert torch.equal(g, hamming.hamming_matrix_torch(*p))
+        np.testing.assert_array_equal(g.numpy(), want.astype(np.int64))
+
+
+@pytest.mark.parametrize("count", [0, 5])
+def test_hamming_matrices_take_one_to_four_problems(count):
+    """The kernel's problem table holds four: the grouped form refuses
+    other counts on the CPU too, so a call that passes here fits the
+    card's."""
+    a = _t(_desc(4, 1))
+    with pytest.raises(ValueError):
+        hamming.hamming_matrices([(a, a, None, None)] * count)
+
+
 def _tied_distances(n, m, seed):
     rng = np.random.default_rng(seed)
     d = rng.integers(20, 40, (n, m)).astype(np.float32)   # many exact ties

@@ -7,7 +7,11 @@ trajectory that the correction moved.
 
 The back-end is driven with the reference VO's own keyframe stream (frames,
 drifted keyframe motions, records), recorded once from the reference's run
-on the same world: the VO is upstream of everything this file tests, and on
+on the same world (``record_reference``, into
+``tests/data/loop_world_reference.pkl.gz``, with the rest of what this file
+compares with: every tracking step, the closure's calls, and the
+reference's back-end on the stream in f64): the VO is upstream of
+everything this file tests, and on
 this world the port's own VO keyframes 17 frames where the reference's
 ``VisualOdometry`` keyframes 16. Where the two runs part is pinned below:
 
@@ -45,6 +49,12 @@ this world.
 """
 
 import dataclasses
+import gzip
+import hashlib
+import pickle
+import sys
+from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -80,6 +90,7 @@ INT_OUTPUTS = ("n_pt", "n_ln", "pt_curr_idx", "ln_curr_idx", "pt_inlier",
                "ln_inlier", "accepted", "need_kf")
 FIRST_DIVERGENT = 8   # first frame whose integer outputs differ
 FIRST_KF_DIVERGENT = 15   # first frame whose keyframe decision differs
+REF_RECORD = Path(__file__).resolve().parent / "data" / "loop_world_reference.pkl.gz"
 
 
 def _step_record(frame_idx, state, prev, curr, delta_t, out, entropy):
@@ -208,8 +219,26 @@ def _loop_world():
     return cfg_ref, world, frames
 
 
-@pytest.fixture(scope="module")
-def setup():
+def _frames_digest(frames) -> str:
+    h = hashlib.sha256()
+    for il, ir in frames:
+        h.update(np.ascontiguousarray(il).tobytes())
+        h.update(np.ascontiguousarray(ir).tobytes())
+    return h.hexdigest()
+
+
+def record_reference() -> dict:
+    """The reference's runs on the loop world that this file compares with,
+    recorded once into ``REF_RECORD`` (``PYTHONPATH=. JAX_PLATFORMS=cpu
+    python tests/test_torch_slam_loop.py --record``, ~2.5 min of the
+    reference's compiles): its SLAMSystem around the drifting, recording VO
+    (the keyframe stream, every tracking step, the closure's pose-graph and
+    fusion calls with their inputs and outputs, its keyframes) and its
+    back-end on that stream with the local BA solved in f64
+    (``reference_ba_in_f64``). A tracking step keeps its inputs (state,
+    previous and current frame) only at ``FIRST_DIVERGENT``, the one step a
+    test re-runs; the digest of the rendered frames ties the record to the
+    world."""
     cfg_ref, world, frames = _loop_world()
     vo = RecordingVO(cfg_ref, ref_test._drift_transform())
     ref = RefSLAM(cfg_ref, vo=vo)
@@ -236,8 +265,34 @@ def setup():
     finally:
         for mod, name, orig, _ in patched:
             setattr(mod, name, orig)
-    return dict(cfg=convert.config_from_ref(cfg_ref), world=world, frames=frames,
-                stream=vo.stream, steps=vo.steps, ref=ref, calls=calls)
+    ref64 = RefSLAM(cfg_ref, vo=RefReplayVO(cfg_ref, vo.stream))
+    with reference_ba_in_f64():
+        for i in range(N):
+            ref64.process(*frames[i], world.timestamps[i])
+        ref64.finish()
+    inputs = ("state", "prev", "curr")
+    steps = [s if s["frame"] == FIRST_DIVERGENT else {k: v for k, v in s.items()
+                                                      if k not in inputs}
+             for s in vo.steps]
+    return dict(frames_digest=_frames_digest(frames), stream=vo.stream, steps=steps,
+                calls=calls, kf_frame_ids=ref.kf_frame_ids,
+                n_keyframes=len(ref.keyframe_trajectory),
+                f64=dict(kf_frame_ids=ref64.kf_frame_ids,
+                         n_loop_closures=ref64.n_loop_closures,
+                         all_frame_trajectory=ref64.all_frame_trajectory))
+
+
+@pytest.fixture(scope="module")
+def setup():
+    """The loop world and the reference's recorded runs on it
+    (``record_reference``)."""
+    cfg_ref, world, frames = _loop_world()
+    with gzip.open(REF_RECORD, "rb") as f:
+        rec = pickle.load(f)
+    assert rec.pop("frames_digest") == _frames_digest(frames), \
+        "the loop world changed: record the reference's runs again"
+    return dict(cfg=convert.config_from_ref(cfg_ref), cfg_ref=cfg_ref, world=world,
+                frames=frames, **rec)
 
 
 def _replay(setup, **kw):
@@ -253,14 +308,8 @@ def _replay(setup, **kw):
 @pytest.fixture(scope="module")
 def ref_f64(setup):
     """The reference's back-end on the same recorded stream with its local
-    BA solved in f64 (``reference_ba_in_f64``)."""
-    cfg_ref = _loop_world()[0]
-    ref = RefSLAM(cfg_ref, vo=RefReplayVO(cfg_ref, setup["stream"]))
-    with reference_ba_in_f64():
-        for i in range(N):
-            ref.process(*setup["frames"][i], setup["world"].timestamps[i])
-        ref.finish()
-    return ref
+    BA solved in f64 (``reference_ba_in_f64``), as recorded."""
+    return SimpleNamespace(**setup["f64"])
 
 
 @pytest.fixture(scope="module")
@@ -312,7 +361,7 @@ def test_closure_agrees_with_reference(setup, runs, ref_f64):
     so a different subset can enter the fusion. The fusion itself is held
     exactly on the reference's own map below."""
     port = runs["lc"]
-    assert ref_f64.kf_frame_ids == setup["ref"].kf_frame_ids
+    assert ref_f64.kf_frame_ids == setup["kf_frame_ids"]
     assert port.n_loop_closures == ref_f64.n_loop_closures >= 1
     assert port.n_fused_landmarks > 0
     assert port.kf_frame_ids == ref_f64.kf_frame_ids
@@ -356,7 +405,7 @@ def test_port_vo_on_the_loop_world(setup, port_run):
     closes no loop)."""
     slam = port_run
     assert not slam.vo.lost
-    assert abs(len(slam.keyframe_trajectory) - len(setup["ref"].keyframe_trajectory)) <= 3
+    assert abs(len(slam.keyframe_trajectory) - setup["n_keyframes"]) <= 3
     traj = slam.all_frame_trajectory
     assert np.isfinite(traj).all() and _ate(setup, slam) < 0.5
 
@@ -409,7 +458,7 @@ def test_port_stages_at_the_first_divergent_frame(setup, port_run):
     The stage-1 Gauss-Newton has not converged after 5 iterations, and the
     point whose flag parts the two runs sits 1.0e-4 inside the MAD gate on
     the reference's inputs and 2.9e-3 outside it on the port's."""
-    cfg, cfg_ref = setup["cfg"], setup["ref"].cfg
+    cfg, cfg_ref = setup["cfg"], setup["cfg_ref"]
     s = setup["steps"][FIRST_DIVERGENT - 1]
     assert s["frame"] == FIRST_DIVERGENT
     state, prev, curr = (convert.to_torch(x, CPU) for x in (s["state"], s["prev"], s["curr"]))
@@ -465,7 +514,7 @@ def test_port_closes_the_loop_on_the_textured_world(setup, tmp_path):
     cfg = setup["cfg"]
     assert cfg.cap.vocab_k in loop.trained_sizes()
     world = synthetic.make_world(n_frames=N, n_points=400, n_lines=50, seed=21,
-                                 motion="loop", cam=setup["ref"].cfg.camera,
+                                 motion="loop", cam=setup["cfg_ref"].camera,
                                  textured=True)
     paths_l, paths_r, rendered = [], [], []
     for i in range(N):
@@ -491,9 +540,9 @@ def test_port_closes_the_loop_on_the_textured_world(setup, tmp_path):
     assert slam.n_loop_closures >= 1 and slam.n_fused_landmarks > 0
 
 
-if __name__ == "__main__":
-    # the three VO loops on the loop world, frame by frame (the tracker's
-    # outputs do not depend on the back-end, so the VOs run alone)
+def _compare_vo_loops():
+    """The three VO loops on the loop world, frame by frame (the tracker's
+    outputs do not depend on the back-end, so the VOs run alone)."""
     from gfplslam_tpu.models.vo import run_vo_scan as ref_run_vo_scan
 
     cfg_ref, world, frames = _loop_world()
@@ -520,3 +569,12 @@ if __name__ == "__main__":
                       ("ref run_vo_scan", scan_kf),
                       ("port VisualOdometry", _kf_frames(port_vo.steps))):
         print(f"{name}: {len(kfs)} keyframes at {kfs}")
+
+
+if __name__ == "__main__":
+    if sys.argv[1:] == ["--record"]:
+        with gzip.open(REF_RECORD, "wb") as f:
+            pickle.dump(record_reference(), f, protocol=pickle.HIGHEST_PROTOCOL)
+        print(f"wrote {REF_RECORD}")
+    else:
+        _compare_vo_loops()

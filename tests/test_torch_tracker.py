@@ -80,6 +80,30 @@ def test_cross_frame_matching_exact(case):
     np.testing.assert_array_equal(got.points.obs[v], want.points.obs[v])
 
 
+@pytest.mark.parametrize("kind", ["points", "lines"])
+def test_cross_matchers_take_the_precomputed_matrix(case, kind):
+    """``cross_frame_matching`` forms both cross-frame matrices in one call
+    and hands each to its matcher: a matcher given the matrix equals the
+    matcher that forms it, on the reference's frames."""
+    f0, f1 = _t(case, "f0"), _t(case, "f1")
+    if kind == "points":
+        dt_pred = torch.from_numpy(np.array(ref_se3.inverse_se3(
+            jnp.asarray(case["st0"].dt_store))))
+        dist = tracker.hamming_matrices([(f0.points.desc, f1.points.desc,
+                                          f0.points.valid, f1.points.valid)])[0]
+        with_d = tracker.cross_match_points(case["cfg"], f0, f1, dt_pred, dist)
+        without = tracker.cross_match_points(case["cfg"], f0, f1, dt_pred)
+    else:
+        dist = tracker.hamming_matrices([(f0.lines.desc, f1.lines.desc,
+                                          f0.lines.valid, f1.lines.valid)])[0]
+        with_d = tracker.cross_match_lines(case["cfg"], f0, f1, dist)
+        without = tracker.cross_match_lines(case["cfg"], f0, f1)
+    (m_d, idx_d), (m, idx) = with_d, without
+    assert torch.equal(idx_d, idx) and bool((idx >= 0).any())
+    for name, g, w in zip(m._fields, m_d, m):
+        assert torch.equal(g, w), name
+
+
 def test_apply_linecut_on_reference_matches(case):
     cfg, cfg_ref = case["cfg"], case["cfg_ref"]
     dt_pred = np.eye(4, dtype=np.float32)
