@@ -31,7 +31,8 @@ no network. Phases, each reported on its own lines:
    EuRoC times under ``euroc`` once phase 10 puts the KITTI frame's there;
 4. small VO: the 376x240 world of ``tests/test_vo_e2e.py`` through
    ``VisualOdometry`` (gates: not lost, accepted > 0.6, ATE < 0.06 m);
-5. full-width VO: the 752x480 EuRoC operating point with the default Config
+5. full-width VO: the 752x480 EuRoC operating point (bench.py's world,
+   built by ``gfplslam_torch/apps/bench.py``) with the default Config
    through ``run_vo_scan`` (one warm-up, median of 3 timed runs; gates: not
    lost, accepted > 0.6, ATE < 5% of the path), with both kernels' launch
    counts of the first timed run checked against the design (2 FAST launches
@@ -43,7 +44,8 @@ no network. Phases, each reported on its own lines:
    not lost, >= 2 keyframes, keyframe ATE < 0.08 m);
 7. full SLAM: ``bench.py``'s full-SLAM run (EuRoC 752x480, default Config
    with ``lc_kf_dist=12, lc_kf_max_dist=6``, the 121-frame textured circuit,
-   uint8, ``run_sequence(chunk=24)`` then ``finish()``), once with loop
+   uint8, as ``gfplslam_torch/apps/bench.py`` builds them;
+   ``run_sequence(chunk=24)`` then ``finish()``), once with loop
    closure and once without: frames/s (host clock around work that ends in
    ``torch.cuda.synchronize()``), keyframes, closures, fused landmarks, ATE,
    and both kernels' launches against the count the keyframes and closures
@@ -109,7 +111,12 @@ no network. Phases, each reported on its own lines:
 16. analysis-apps: ``assess``, ``ab_orb_pattern``, ``simulate_linecut`` and
    ``simulate_pl_loss`` through their ``run`` at the reference's defaults,
    against the JAX package's numbers where it has them, with the kernels'
-   launches of the first two.
+   launches of the first two;
+17. bench: ``python -m gfplslam_torch.apps.bench --device cuda --small
+   --reps 1`` (the port's counterpart of bench.py, its 376x240 preset) as a
+   process of its own: exit 0 (its gates held), its last line this card's,
+   every section's launches equal to the design and both kernels launched
+   in each section but the BA.
 
 Any failure raises, so the script exits non-zero before the last line and
 names the failing phase on stderr. The line before the last holds the
@@ -121,6 +128,7 @@ from __future__ import annotations
 import json
 import multiprocessing
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -470,16 +478,6 @@ def _hamming_library(lib, main_ham, main_kf) -> dict:
             "keyframe_ms": times[best]["keyframe"], "by_shape": by_shape}
 
 
-def _lost(accepted: np.ndarray, max_loss: int) -> bool:
-    """Track lost: more than ``max_loss`` consecutive rejected frames."""
-    run = 0
-    for ok in accepted:
-        run = 0 if ok else run + 1
-        if run > max_loss:
-            return True
-    return False
-
-
 def phase_small_vo(dev):
     from gfplslam_torch.config import (CameraParams, CapacityParams, Config,
                                        OrbParams)
@@ -506,36 +504,27 @@ def phase_small_vo(dev):
 
 
 def _reset_counts():
-    from gfplslam_torch.ops.fast import fast_score_cuda
-    from gfplslam_torch.ops.hamming import hamming_cuda
-    fast_score_cuda.launches = 0
-    hamming_cuda.launches = 0
+    from gfplslam_torch.apps.bench import reset_launch_counts
+    reset_launch_counts()
 
 
 def _counts() -> dict:
-    from gfplslam_torch.ops.fast import fast_score_cuda
-    from gfplslam_torch.ops.hamming import hamming_cuda
-    return {"fast9_score": fast_score_cuda.launches,
-            "hamming_matrix": hamming_cuda.launches}
+    from gfplslam_torch.apps.bench import launch_counts
+    return launch_counts()
 
 
 def phase_full_vo(dev, records):
     import torch
+    from gfplslam_torch.apps import bench
     from gfplslam_torch.config import CameraParams, Config
-    from gfplslam_torch.io import synthetic
     from gfplslam_torch.models.vo import run_vo_scan
-    from gfplslam_torch.utils.kernel_bench import u8
     from gfplslam_torch.utils.trajectory import ate_rmse
 
     cfg = Config(camera=CameraParams())
-    n = 48
-    world = synthetic.make_world(n_frames=n, n_points=900, n_lines=90, seed=3,
-                                 cam=cfg.camera)
-    frames = _render(world, n, noise=1.5)
-
-    imgs_l = torch.as_tensor(u8(np.stack([f[0] for f in frames])), device=dev)
-    imgs_r = torch.as_tensor(u8(np.stack([f[1] for f in frames])), device=dev)
-    ts = torch.as_tensor(world.timestamps.astype(np.float32), device=dev)
+    world = bench.world_arrays(bench.FULL, ["vo"])["vo"]
+    n = len(world.left)
+    imgs_l, imgs_r, ts = (torch.as_tensor(x, device=dev)
+                          for x in (world.left, world.right, world.ts))
 
     t0 = time.perf_counter()
     run_vo_scan(cfg, imgs_l, imgs_r, ts, device=dev)
@@ -554,7 +543,7 @@ def phase_full_vo(dev, records):
             launches = _counts()
     # one paired launch per frame's stereo matrices, one per tracked frame's
     # cross-frame matrices
-    expected = {"fast9_score": 2 * n, "hamming_matrix": 1 + 2 * (n - 1)}
+    expected = bench.vo_launches(n)
     print(f"[full-vo] launches in one run: {launches} (expected {expected})")
     if launches != expected:
         _fail(f"kernel launch counts {launches} != expected {expected}")
@@ -577,7 +566,7 @@ def phase_full_vo(dev, records):
         _fail(f"poses not finite of shape ({n}, 4, 4): {poses.shape}")
     accepted = aux["accepted"].cpu().numpy()
     acc = float(accepted.mean())
-    lost = _lost(accepted, cfg.slam.max_num_frame_loss)
+    lost = bench.track_lost(accepted, cfg.slam.max_num_frame_loss)
     ate = ate_rmse(poses, world.poses)
     path = float(np.linalg.norm(np.diff(world.poses[:, :3, 3], axis=0),
                                 axis=1).sum())
@@ -652,21 +641,15 @@ def _time_recorded_keyframes(cfg, calls, mapping_step):
 
 def phase_full_slam(dev, records):
     import torch
-    from gfplslam_torch.config import CameraParams, Config, SlamParams
-    from gfplslam_torch.io import synthetic
+    from gfplslam_torch.apps import bench
     from gfplslam_torch.models import mapping
     from gfplslam_torch.models.slam import SLAMSystem
-    from gfplslam_torch.utils.kernel_bench import u8
     from gfplslam_torch.utils.trajectory import ate_rmse
 
-    cfg = Config(camera=CameraParams(),
-                 slam=SlamParams(lc_kf_dist=12, lc_kf_max_dist=6))
-    n, chunk = 121, 24
-    world = synthetic.make_world(n_frames=n, n_points=900, n_lines=90, seed=11,
-                                 motion="circuit", cam=cfg.camera, textured=True)
-    frames = _render(world, n, noise=1.0)
-    imgs_l = u8(np.stack([f[0] for f in frames]))
-    imgs_r = u8(np.stack([f[1] for f in frames]))
+    cfg, chunk = bench.FULL.cfg, bench.FULL.chunk
+    world = bench.world_arrays(bench.FULL, ["slam"])["slam"]
+    n = len(world.left)
+    imgs_l, imgs_r = world.left, world.right
 
     # record six keyframes' mapping inputs (references only: no host read)
     step = mapping.mapping_step
@@ -686,7 +669,7 @@ def phase_full_slam(dev, records):
             torch.cuda.synchronize()
             _reset_counts()
             t0 = time.perf_counter()
-            slam.run_sequence(imgs_l, imgs_r, world.timestamps, chunk=chunk)
+            slam.run_sequence(imgs_l, imgs_r, world.ts, chunk=chunk)
             slam.finish()
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
@@ -696,9 +679,7 @@ def phase_full_slam(dev, records):
         n_kf = int(slam.map.n_kf)
         ate = ate_rmse(slam.all_frame_trajectory, world.poses)
         closures = slam.n_loop_closures
-        expected = {"fast9_score": 2 * n,
-                    "hamming_matrix": (1 + 2 * (n - 1) + 2 + (6 if lc else 4) * (n_kf - 1)
-                                       + 2 * closures)}
+        expected = bench.slam_launches(n, n_kf, closures, lc)
         tag = "lc" if lc else "no-lc"
         print(f"[full-slam] {tag}: 752x480 x{n}, chunk {chunk}: {secs:.3f} s = "
               f"{n / secs:.3f} frames/s; lost {slam.vo.lost}, keyframes {n_kf}, "
@@ -739,6 +720,7 @@ def phase_full_capacity_loop(dev, name, records, n: int = 40):
     ``finish()``, held to that test's gates and to the reference's
     trajectory recorded in tests/data/ref_full_capacity_loop_traj.npy."""
     import torch
+    from gfplslam_torch.apps import bench
     from gfplslam_torch.config import Config, SlamParams
     from gfplslam_torch.io import native_loader, synthetic
     from gfplslam_torch.models import loop
@@ -785,8 +767,7 @@ def phase_full_capacity_loop(dev, name, records, n: int = 40):
     ate = ate_rmse(slam.all_frame_trajectory, world.poses)
     ref = np.load(HERE / "tests" / "data" / "ref_full_capacity_loop_traj.npy")
     parity = ate_rmse(slam.all_frame_trajectory, ref)
-    expected = {"fast9_score": 2 * n,
-                "hamming_matrix": 1 + 2 * (n - 1) + 2 + 6 * (n_kf - 1) + 2 * closures}
+    expected = bench.slam_launches(n, n_kf, closures, True)
     print(f"[full-capacity-loop] 752x480 x{n}, 1024 pt / 512 ln, vocab "
           f"{Path(source).name}, per-frame process: {secs:.3f} s = {n / secs:.3f} "
           f"frames/s; lost {slam.vo.lost}, keyframes {n_kf}, loop closures "
@@ -901,7 +882,7 @@ def phase_kitti_run_slam(dev, name, records, n: int = 61):
     FAST kernel at the shapes this width gives it (frame 0's pyramid):
     exact at every threshold, then timed, into the kernel's record."""
     import torch
-    from gfplslam_torch.apps import run_slam
+    from gfplslam_torch.apps import bench, run_slam
     from gfplslam_torch.config import Config
     from gfplslam_torch.io import synthetic
     from gfplslam_torch.io.datasets import KITTI_CALIB, load_kitti
@@ -934,9 +915,7 @@ def phase_kitti_run_slam(dev, name, records, n: int = 61):
           f"device {name} ({_smi()}): {secs:.4f} s = {frames / secs:.4f} frames/s "
           f"(host clock, native loader and outputs included)")
     path = float(np.linalg.norm(np.diff(world.poses[:, :3, 3], axis=0), axis=1).sum())
-    expected = {"fast9_score": 2 * frames,
-                "hamming_matrix": 1 + 2 * (frames - 1) + 2 + 6 * (n_kf - 1)
-                + 2 * closures}
+    expected = bench.slam_launches(frames, n_kf, closures, True)
     print(f"[kitti-run-slam] ATE {summary.get('ate_rmse')} m of path {path:.4f} m; "
           f"launches {launches} (expected {expected})")
     if summary["lost"] or n_kf < 2 or frames != n:
@@ -1296,6 +1275,7 @@ def phase_batch_vo(dev, name, records, n_seq: int = 4, n: int = 24):
     integer outputs equal, poses within 0.08 m aligned ATE of each other,
     each ATE < 5% of its path; launches as the frames imply."""
     import torch
+    from gfplslam_torch.apps import bench
     from gfplslam_torch.config import CameraParams, Config
     from gfplslam_torch.io import synthetic
     from gfplslam_torch.parallel import multihost, workers
@@ -1313,8 +1293,7 @@ def phase_batch_vo(dev, name, records, n_seq: int = 4, n: int = 24):
     ts = np.stack([w.timestamps.astype(np.float32) for w in worlds])
     print(f"[batch-vo] rendered {n_seq} x {n} frames 752x480 in "
           f"{time.perf_counter() - t0:.1f} s")
-    expected = {"fast9_score": n_seq * 2 * n,
-                "hamming_matrix": n_seq * (1 + 2 * (n - 1))}
+    expected = {k: n_seq * v for k, v in bench.vo_launches(n).items()}
 
     run_vo_batch(cfg, il[:1, :2], ir[:1, :2], ts[:1, :2], device=dev)  # warm-up
     torch.cuda.synchronize()
@@ -1417,6 +1396,47 @@ def phase_analysis_apps(dev, name, records):
           f"device {name} ({_smi()})")
 
 
+def phase_bench(dev, name, records):
+    """``python -m gfplslam_torch.apps.bench --device cuda --small --reps 1``
+    as its own process: it exits 0 (every gate of the bench held, its
+    launch counts included), its last line is the bench's JSON object on
+    this card, and every section's launches, as it printed them, equal the
+    design with both kernels launched wherever the section reaches them."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gfplslam_torch.apps.bench", "--device", "cuda",
+         "--small", "--reps", "1"], cwd=HERE, capture_output=True, text=True,
+        timeout=600)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line)
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        _fail(f"the bench exited {proc.returncode}")
+    out = json.loads(lines[-1])
+    print(f"[bench] last line: {lines[-1]}")
+    if (out["device"]["name"] != _smi().rsplit(",", 1)[0].strip()
+            or not out["n_loop_closures"] >= 1):
+        _fail(f"the bench's result is not this card's or closed no loop: {out}")
+    pattern = re.compile(r"^\[bench\] (\w+): launches (\{.*\}) expected (\{.*\})$")
+    sections = {m[1]: (json.loads(m[2]), json.loads(m[3]))
+                for m in map(pattern.match, lines) if m}
+    if set(sections) != {"vo", "mapping", "ba", "full_slam", "per_frame", "kitti"}:
+        _fail(f"the bench printed launches for {sorted(sections)}")
+    total = {r["name"]: 0 for r in records}
+    for section, (got, want) in sections.items():
+        if got != want or (section != "ba") != (min(got.values()) > 0):
+            _fail(f"bench {section}: launches {got}, design {want}")
+        for k in total:
+            total[k] += got[k]
+    for r in records:
+        r["launches_by_path"]["bench_small"] = total[r["name"]]
+    print(f"[bench] --small --reps 1 in {secs:.1f} s (process start and "
+          f"rendering included); launches summed over its sections {total}; "
+          f"device {name} ({_smi()})")
+
+
 def _run(phase: str, fn, *args):
     """Run one phase; on any failure name it on stderr, then let it end the
     script (the exit code stays non-zero)."""
@@ -1450,6 +1470,7 @@ def main() -> None:
     _run("dist-ba", phase_dist_ba, dev, name)
     _run("batch-vo", phase_batch_vo, dev, name, records)
     _run("analysis-apps", phase_analysis_apps, dev, name, records)
+    _run("bench", phase_bench, dev, name, records)
     print(f"[total] every phase passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
