@@ -85,7 +85,7 @@ no network. Phases, each reported on its own lines:
    and its device time, bound, plain time and host time there (the
    record's);
 11. timed VO: ``run_slam --synthetic --timing --vo-only --frames 8``
-   (``TimedVO``) against ``VisualOdometry`` on the same frames: equal
+   (the tracer's sync mode) against ``VisualOdometry`` on the same frames: equal
    trajectories, every ``time_*`` field > 0 on every tracked frame; then
    ``run_slam --kitti DIR --timing --vo-only -n 20`` on phase 10's
    sequence: the median ms of each stage at KITTI width;
@@ -965,11 +965,11 @@ def phase_kitti_run_slam(dev, name, records, n: int = 61):
 
 
 def phase_timed_vo(dev, name, records, n_kitti: int = 20):
-    """``run_slam --synthetic --timing --vo-only --frames 8`` (TimedVO, one
-    synchronized call per reference stage) against VisualOdometry on the
-    same frames: trajectories equal, every stage timed. Then the same mode
-    on the first ``n_kitti`` frames of the KITTI sequence: where a frame's
-    time goes at 1241x376."""
+    """``run_slam --synthetic --timing --vo-only --frames 8`` (the tracer's
+    sync mode: a device synchronise at the end of every span) against
+    VisualOdometry on the same frames: trajectories equal, every stage
+    timed. Then the same mode on the first ``n_kitti`` frames of the KITTI
+    sequence: where a frame's time goes at 1241x376."""
     from gfplslam_torch.apps import run_slam
     from gfplslam_torch.io import synthetic
     from gfplslam_torch.models.vo import VisualOdometry
@@ -995,7 +995,7 @@ def phase_timed_vo(dev, name, records, n_kitti: int = 20):
     for i in range(8):
         plain.process(*synthetic.render_frame(world, i), world.timestamps[i])
     if not np.array_equal(timed.trajectory, plain.trajectory):
-        _fail("TimedVO trajectory != VisualOdometry's on the same frames: max "
+        _fail("--timing trajectory != VisualOdometry's on the same frames: max "
               f"{np.abs(timed.trajectory - plain.trajectory).max()}")
     if min(launches.values()) < 1:
         _fail(f"timed VO launched a kernel no time: {launches}")

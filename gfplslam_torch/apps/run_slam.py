@@ -11,12 +11,23 @@ Usage:
   python -m gfplslam_torch.apps.run_slam --synthetic --frames 30 -o out/syn
   python -m gfplslam_torch.apps.run_slam --euroc DIR/MH_01_easy -o out/mh01
   python -m gfplslam_torch.apps.run_slam --kitti DIR/00 -o out/k00 --vo-only
+  python -m gfplslam_torch.apps.run_slam --synthetic --trace-out out/syn.trace.json
+
+``--timing`` ends every span of the tracer (``utils/trace.py``) with a
+device synchronise and fills every stage field of the TimeLog from the
+stage spans. ``--trace-out PATH`` records the run's spans and counters and
+writes the spans as a Chrome trace to PATH and the counters beside it
+(PATH with ``.counters.json`` in place of ``.json``); with ``--profile``
+the run is also profiled (device activity and the program's spans) and
+the device's idle time is printed by the span the host was in.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import sys
 import time
 
@@ -53,9 +64,15 @@ def run(argv=None):
     ap.add_argument("--small", action="store_true",
                     help="reduced capacities (fast CPU runs)")
     ap.add_argument("--timing", action="store_true",
-                    help="per-module TimeLog mode: one synchronized call per "
-                         "reference pipeline stage (all 10 time_* fields "
-                         "populated; costs the host/device overlap)")
+                    help="per-module TimeLog mode: every span of the served "
+                         "path ends with a device synchronise (all 10 time_* "
+                         "fields populated; costs the host/device overlap)")
+    ap.add_argument("--trace-out", metavar="PATH",
+                    help="record the run's spans and counters: the spans as "
+                         "a Chrome trace at PATH, the counters beside it")
+    ap.add_argument("--profile", action="store_true",
+                    help="with --trace-out: profile the run and print the "
+                         "device's idle time by the span the host was in")
     ap.add_argument("--async-mapping", dest="async_mapping",
                     action="store_true", default=True,
                     help="per-KF BA/loop decisions land at the next KF, so "
@@ -74,6 +91,8 @@ def run(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: cuda)")
     args = ap.parse_args(argv)
+    if args.profile and not args.trace_out:
+        ap.error("--profile needs --trace-out")
 
     if args.multihost:
         from gfplslam_torch.parallel.multihost import ensure_multihost
@@ -141,12 +160,13 @@ def run(argv=None):
     )
 
     # ---- engine ----
-    if args.timing:
-        from gfplslam_torch.models.timed_vo import TimedVO
-        vo = TimedVO(cfg, device=device)
-    else:
-        from gfplslam_torch.models.vo import VisualOdometry
-        vo = VisualOdometry(cfg, device=device)
+    from gfplslam_torch.models.vo import VisualOdometry
+    from gfplslam_torch.utils import trace
+    tracing = bool(args.timing or args.trace_out)
+    if tracing:
+        trace.reset()
+        trace.enable(sync=args.timing)
+    vo = VisualOdometry(cfg, device=device)
     if args.vo_only:
         engine = vo
     else:
@@ -157,7 +177,10 @@ def run(argv=None):
 
     t0 = time.perf_counter()
     n_done = 0
+    profiling, session = contextlib.ExitStack(), None
     try:
+        if args.profile:
+            session = profiling.enter_context(trace.profile_spans(device))
         if args.chunk and not args.vo_only:
             # streaming chunk driver (SLAMSystem.process_chunk): one queued
             # tracking scan + one host read per N frames
@@ -204,6 +227,9 @@ def run(argv=None):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     finally:
+        profiling.close()
+        if tracing:
+            trace.disable()
         if loader is not None:
             loader.close()
     wall = time.perf_counter() - t0
@@ -243,8 +269,39 @@ def run(argv=None):
         # capped-work counters (fusion candidates / KF snapshots over
         # capacity) — surfaced so fixed-capacity compactions are never silent
         summary["counters"] = {k: v for k, v in engine.counters.items() if v}
+    if args.trace_out:
+        write_trace(args.trace_out, session)
     print(json.dumps(summary))
     return summary, engine
+
+
+def write_trace(path: str, session=None) -> dict:
+    """Write the tracer's spans as a Chrome trace at ``path`` and its
+    counters beside it: each counter's total and its calls, and for each
+    solver the share of its dispatched iterations that began converged.
+    With a profiled ``session``, print the device's idle time by span.
+    Returns the counters summary."""
+    from gfplslam_torch.utils import trace
+    snap = trace.export_chrome(path)
+    c = snap.counters
+    summary = {"counters": c, "series": snap.series, "idle_iters_pct": {
+        solver: round(100.0 * (c[f"{solver}.{n}_dispatched"]
+                               - c.get(f"{solver}.{n}_active", 0))
+                      / c[f"{solver}.{n}_dispatched"], 3)
+        for solver, n in (("pose_opt", "iters"), ("ba", "iters"), ("pgo", "steps"))
+        if c.get(f"{solver}.{n}_dispatched")}}
+    if session is not None:
+        summary["idle_by_span"] = trace.idle_by_span(session)
+        idle = summary["idle_by_span"]
+        print(f"device idle {idle['idle_s']:.4f} s, "
+              f"{100 * (idle['in_span_share'] or 0):.2f}% of it inside a span; "
+              "by span: " + ", ".join(f"{k} {v:.4f} s"
+                                      for k, v in list(idle["by_span"].items())[:10]),
+              file=sys.stderr)
+    root, ext = os.path.splitext(path)
+    with open((root if ext == ".json" else path) + ".counters.json", "w") as f:
+        json.dump(summary, f, indent=1)
+    return summary
 
 
 if __name__ == "__main__":

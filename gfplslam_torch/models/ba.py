@@ -23,7 +23,7 @@ import torch
 
 from gfplslam_torch.config import CameraParams
 from gfplslam_torch.models import ba_core
-from gfplslam_torch.utils import se3
+from gfplslam_torch.utils import se3, trace
 
 
 class BAProblem(NamedTuple):
@@ -220,22 +220,25 @@ def solve_ba(cam: CameraParams, prob: BAProblem, lambda0: float = 1e-3,
     lam = torch.tensor(lambda0, dtype=torch.float32, device=dev)
     iters = torch.zeros((), dtype=torch.int32, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
+    trace.count("ba.iters_dispatched", max_iters)
     for _ in range(max_iters):
-        cand = solve_with_lam(bk, *x, lam)
-        bk_cand, new_err = build_blocks(*cand)
-        active = ~done
-        improve = new_err < err
-        take = active & improve
-        # lambda schedule (:1661-1678)
-        lam = torch.where(active, torch.where(improve, lam / lambda_k,
-                                              lam * lambda_k), lam)
-        x = tuple(torch.where(take, c, o) for c, o in zip(cand, x))
-        bk = ba_core.BABlocks(*(torch.where(take, c, o)
-                                for c, o in zip(bk_cand, bk)))
-        conv = improve & (err - new_err < tol * torch.clamp(new_err, min=1e-12))
-        err = torch.where(take, new_err, err)
-        iters = iters + active.to(torch.int32)
-        done = done | conv
+        with trace.span("ba.iter"):
+            cand = solve_with_lam(bk, *x, lam)
+            bk_cand, new_err = build_blocks(*cand)
+            active = ~done
+            improve = new_err < err
+            take = active & improve
+            # lambda schedule (:1661-1678)
+            lam = torch.where(active, torch.where(improve, lam / lambda_k,
+                                                  lam * lambda_k), lam)
+            x = tuple(torch.where(take, c, o) for c, o in zip(cand, x))
+            bk = ba_core.BABlocks(*(torch.where(take, c, o)
+                                    for c, o in zip(bk_cand, bk)))
+            conv = improve & (err - new_err < tol * torch.clamp(new_err, min=1e-12))
+            err = torch.where(take, new_err, err)
+            iters = iters + active.to(torch.int32)
+            done = done | conv
+    trace.count_device("ba.iters_active", iters)
     t_cw, pt_pos, ln_sp, ln_ep = x
 
     # post-BA outlier marking by chi2 (:1714-1836)

@@ -25,6 +25,7 @@ from gfplslam_torch.ops.hamming import BIG, hamming_matrices, hamming_matrix
 from gfplslam_torch.ops.matching import mutual_best
 from gfplslam_torch.ops.pyramid import (build_pyramid_padded, gaussian_blur,
                                         level_shapes)
+from gfplslam_torch.utils import trace
 from gfplslam_torch.utils.robust import masked_median, masked_stdv_mad_nozero
 
 
@@ -421,21 +422,35 @@ def process_stereo_pair(img_l: torch.Tensor, img_r: torch.Tensor, cfg: Config,
     Takes [H, W] images of any dtype on the compute device (uint8 camera
     bytes cost 4x less to upload) and casts to float32 there. ``fast_th`` is
     a float or a one-element f32 tensor on that device."""
-    imgs = torch.stack([img_l, img_r]).float()
-    pyrs = build_pyramid_padded(imgs, cfg.orb.nlevels, cfg.orb.scale_factor)
-    feats = detect_camera_features(imgs, cfg, fast_th, pyrs)
-    feat_l, feat_r = take(feats, 0), take(feats, 1)
-    if not cfg.stvo.has_lines:
-        pts = stereo_match_points(cfg.camera, cfg, feat_l, feat_r, pyrs[0], pyrs[1])
-        return StereoFrame(points=pts, lines=empty_lines(cfg, imgs.device),
-                           feat_l=feat_l)
-    # both stereo matrices in one kernel launch
-    d_pt, d_ln = hamming_matrices([_point_problem(feat_l, feat_r),
-                                   _line_problem(feat_l, feat_r)])
-    pts = stereo_match_points(cfg.camera, cfg, feat_l, feat_r, pyrs[0], pyrs[1],
-                              d_pt)
-    lns = stereo_match_lines(cfg.camera, cfg, feat_l, feat_r, d_ln)
-    return StereoFrame(points=pts, lines=lns, feat_l=feat_l)
+    with trace.timed("vo.frontend"):
+        with trace.span("frontend.points"):
+            imgs = torch.stack([img_l, img_r]).float()
+            pyrs = build_pyramid_padded(imgs, cfg.orb.nlevels, cfg.orb.scale_factor)
+            points = detect_point_features(pyrs, cfg, fast_th)
+        if not cfg.stvo.has_lines:
+            with trace.span("frontend.stereo_points"):
+                feats = camera_features(cfg, points)
+                feat_l, feat_r = take(feats, 0), take(feats, 1)
+                pts = stereo_match_points(cfg.camera, cfg, feat_l, feat_r,
+                                          pyrs[0], pyrs[1])
+            return StereoFrame(points=pts, lines=empty_lines(cfg, imgs.device),
+                               feat_l=feat_l)
+        with trace.span("frontend.lines"):
+            lines = detect_line_segments(imgs, cfg)
+        with trace.span("frontend.line_desc"):
+            feats = camera_features(cfg, points, lines,
+                                    describe_line_segments(imgs, lines.sp, lines.ep))
+            feat_l, feat_r = take(feats, 0), take(feats, 1)
+        # both stereo matrices in one kernel launch
+        with trace.span("frontend.stereo_hamming"):
+            d_pt, d_ln = hamming_matrices([_point_problem(feat_l, feat_r),
+                                           _line_problem(feat_l, feat_r)])
+        with trace.span("frontend.stereo_points"):
+            pts = stereo_match_points(cfg.camera, cfg, feat_l, feat_r, pyrs[0],
+                                      pyrs[1], d_pt)
+        with trace.span("frontend.stereo_lines"):
+            lns = stereo_match_lines(cfg.camera, cfg, feat_l, feat_r, d_ln)
+        return StereoFrame(points=pts, lines=lns, feat_l=feat_l)
 
 
 def estimate_line_uncertainty(cam: CameraParams, cfg: Config,

@@ -33,7 +33,7 @@ from gfplslam_torch.models.frame import StereoFrame
 from gfplslam_torch.models.map import set_rows
 from gfplslam_torch.ops import matching as match_ops
 from gfplslam_torch.ops.hamming import hamming_matrix
-from gfplslam_torch.utils import se3
+from gfplslam_torch.utils import se3, trace
 
 CUDA = torch.device("cuda")
 DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -543,7 +543,10 @@ def optimize_pose_graph(kf_pose: torch.Tensor, kf_valid: torch.Tensor,
 
     x = kf_pose.new_zeros((k, 6))
     done = torch.zeros((), dtype=torch.bool, device=kf_pose.device)
+    trace.count("pgo.steps_dispatched", iters)
     for _ in range(iters):
+        # a step that begins converged is a no-op on the device
+        trace.count_device("pgo.steps_active", done, negate=True)
         x_new = gn_step(x)
         delta = torch.abs(x_new - x).max()
         x = torch.where(done, x, x_new)

@@ -20,7 +20,7 @@ from gfplslam_torch.models import ba as ba_ops
 from gfplslam_torch.models import loop as loop_ops
 from gfplslam_torch.models import map as map_ops
 from gfplslam_torch.models.frame import take
-from gfplslam_torch.utils import se3
+from gfplslam_torch.utils import se3, trace
 
 
 class MappingResult(NamedTuple):
@@ -44,42 +44,54 @@ def mapping_step(cfg: Config, m: map_ops.MapState, ls: loop_ops.LoopState,
     lookForCommonMatches -> localBundleAdjustment -> removeBadMapLandmarks
     -> insertKFBowVectorPL -> lookForLoopCandidates.
     """
-    dev = t_rel.device
-    m, match = map_ops.add_keyframe(cfg, m, frame, t_rel)
-    ba_err = torch.zeros((), device=dev)
-    ba_iters = torch.zeros((), dtype=torch.int32, device=dev)
-    if run_ba:
-        prob, w_ids, p_ids, l_ids, po_src, lo_src = \
-            map_ops.build_local_ba_problem(cfg, m)
-        res = ba_ops.solve_ba(cfg.camera, prob,
-                              lambda0=cfg.slam.lambda_lba_lm,
-                              lambda_k=cfg.slam.lambda_lba_k,
-                              max_iters=cfg.slam.max_iters_lba)
-        m = map_ops.apply_ba_result(cfg, m, res, w_ids, p_ids, l_ids)
-        # delete the observations BA marked as outliers (the reference's
-        # post-BA obs deletion, mapHandler.cpp:1714-1836)
-        m = map_ops.apply_ba_outliers(cfg, m, res, po_src, lo_src)
-        ba_err = res.err
-        ba_iters = res.iters
-    m = map_ops.remove_bad_landmarks(cfg, m)
-    if cull_redundant:
-        m, _ = map_ops.remove_redundant_kfs(cfg, m)
-    kf_idx = m.n_kf - 1
-    ls = loop_ops.insert_kf_bow(cfg, ls, kf_idx, frame)
-    if run_lc:
-        cand = loop_ops.look_for_loop_candidates(cfg, ls, m.full_graph, kf_idx)
-        ver = loop_ops.verify_loop(cfg, ls, torch.clamp(cand, min=0), kf_idx)
-    else:
-        cand = torch.full((), -1, dtype=torch.int32, device=dev)
-        ver = loop_ops.LoopVerification(
-            accepted=torch.zeros((), dtype=torch.bool, device=dev),
-            t_rel=torch.eye(4, device=dev),
-            n_inliers=torch.zeros((), dtype=torch.int32, device=dev),
-            err=torch.zeros((), device=dev))
-    return MappingResult(map=m, loop_state=ls, cand=cand, verification=ver,
-                         n_pt_matched=match.n_pt_matched,
-                         n_ln_matched=match.n_ln_matched,
-                         ba_err=ba_err, ba_iters=ba_iters)
+    with trace.span("mapping.step"):
+        dev = t_rel.device
+        with trace.span("map.add_keyframe"):
+            m, match = map_ops.add_keyframe(cfg, m, frame, t_rel)
+        ba_err = torch.zeros((), device=dev)
+        ba_iters = torch.zeros((), dtype=torch.int32, device=dev)
+        if run_ba:
+            with trace.span("map.ba_problem"):
+                prob, w_ids, p_ids, l_ids, po_src, lo_src = \
+                    map_ops.build_local_ba_problem(cfg, m)
+                if trace.recording():
+                    trace.count_device("ba.obs_pt", prob.po_valid.sum())
+                    trace.count_device("ba.obs_ln", prob.lo_valid.sum())
+            with trace.span("ba.solve"):
+                res = ba_ops.solve_ba(cfg.camera, prob,
+                                      lambda0=cfg.slam.lambda_lba_lm,
+                                      lambda_k=cfg.slam.lambda_lba_k,
+                                      max_iters=cfg.slam.max_iters_lba)
+            with trace.span("map.apply_ba"):
+                m = map_ops.apply_ba_result(cfg, m, res, w_ids, p_ids, l_ids)
+                # delete the observations BA marked as outliers (the reference's
+                # post-BA obs deletion, mapHandler.cpp:1714-1836)
+                m = map_ops.apply_ba_outliers(cfg, m, res, po_src, lo_src)
+            ba_err = res.err
+            ba_iters = res.iters
+        with trace.span("map.cull"):
+            m = map_ops.remove_bad_landmarks(cfg, m)
+            if cull_redundant:
+                m, _ = map_ops.remove_redundant_kfs(cfg, m)
+        kf_idx = m.n_kf - 1
+        with trace.span("loop.insert_bow"):
+            ls = loop_ops.insert_kf_bow(cfg, ls, kf_idx, frame)
+        if run_lc:
+            with trace.span("loop.candidates"):
+                cand = loop_ops.look_for_loop_candidates(cfg, ls, m.full_graph, kf_idx)
+            with trace.span("loop.verify"):
+                ver = loop_ops.verify_loop(cfg, ls, torch.clamp(cand, min=0), kf_idx)
+        else:
+            cand = torch.full((), -1, dtype=torch.int32, device=dev)
+            ver = loop_ops.LoopVerification(
+                accepted=torch.zeros((), dtype=torch.bool, device=dev),
+                t_rel=torch.eye(4, device=dev),
+                n_inliers=torch.zeros((), dtype=torch.int32, device=dev),
+                err=torch.zeros((), device=dev))
+        return MappingResult(map=m, loop_state=ls, cand=cand, verification=ver,
+                             n_pt_matched=match.n_pt_matched,
+                             n_ln_matched=match.n_ln_matched,
+                             ba_err=ba_err, ba_iters=ba_iters)
 
 
 def mapping_step_chunk(cfg: Config, m: map_ops.MapState,

@@ -21,7 +21,7 @@ import torch
 
 from gfplslam_torch.config import CameraParams, OptimizerParams
 from gfplslam_torch.ops.camera import project
-from gfplslam_torch.utils import se3
+from gfplslam_torch.utils import se3, trace
 from gfplslam_torch.utils.robust import masked_stdv_mad
 
 
@@ -126,7 +126,10 @@ def gauss_newton(cam: CameraParams, dt0: torch.Tensor, pts: PointMatches,
     dt = dt0
     err_prev = torch.full((), 1e9, dtype=dt0.dtype, device=dt0.device)
     done = torch.zeros((), dtype=torch.bool, device=dt0.device)
+    trace.count("pose_opt.iters_dispatched", max_iters)
     for _ in range(max_iters):
+        # an iteration that begins converged is a no-op on the device
+        trace.count_device("pose_opt.iters_active", done, negate=True)
         h, g, err = build_normal_equations(cam, dt, pts, lns, opt.homog_th)
         stop = (torch.abs(err - err_prev) < opt.min_error_change) | (err < opt.min_error)
         # pivoted LU; solve_ex never raises on a singular H (the is_finite

@@ -31,7 +31,7 @@ from gfplslam_torch.models import mapping
 from gfplslam_torch.models import tracker as trk
 from gfplslam_torch.models import vo as vo_mod
 from gfplslam_torch.models.vo import VisualOdometry
-from gfplslam_torch.utils import checkpoint
+from gfplslam_torch.utils import checkpoint, trace
 
 CUDA = torch.device("cuda")
 LC_IDLE, LC_ACTIVE, LC_READY = 0, 1, 2
@@ -80,17 +80,21 @@ class SLAMSystem:
     _lc_deferred: tuple = None
     _ts_base: float = None
     _scan_carry: tuple = None
+    _n_scanned: int = 0     # frames the streaming driver has queued
 
     def __post_init__(self):
-        self.device = torch.device(self.device)
-        if self.vo is None:
-            self.vo = VisualOdometry(self.cfg, device=self.device)
-        if self.map is None:
-            self.map = map_ops.empty_map(self.cfg, self.device)
-        if self.loop_state is None:
-            self.loop_state = loop_ops.empty_loop_state(self.cfg, self.device)
-        # host mirror of map.n_kf so queuing never reads the map back
-        self._n_kf_host = int(self.map.n_kf)
+        trace.frame(None)
+        with trace.span("slam.init"):
+            self.device = torch.device(self.device)
+            if self.vo is None:
+                self.vo = VisualOdometry(self.cfg, device=self.device)
+            if self.map is None:
+                self.map = map_ops.empty_map(self.cfg, self.device)
+            if self.loop_state is None:
+                self.loop_state = loop_ops.empty_loop_state(self.cfg, self.device)
+            # host mirror of map.n_kf so queuing never reads the map back
+            with trace.wait("wait.n_kf"):
+                self._n_kf_host = int(self.map.n_kf)
 
     def _scalar(self, v, dtype=torch.int32) -> torch.Tensor:
         return torch.tensor(v, dtype=dtype, device=self.device)
@@ -98,41 +102,45 @@ class SLAMSystem:
     # ------------------------------------------------------------------
     def process(self, img_l: np.ndarray, img_r: np.ndarray, timestamp: float):
         """One stereo frame through the full system."""
-        rec = self.vo.process(img_l, img_r, timestamp)
-        frame = self.vo.prev_frame  # the frame just processed
+        trace.frame(self.vo.frame_idx)
+        with trace.span("slam.process"):
+            rec = self.vo.process(img_l, img_r, timestamp)
+            frame = self.vo.prev_frame  # the frame just processed
 
-        if rec.is_kf and not self.vo.lost:
-            kf_idx = self._n_kf_host
-            if self.async_mapping:
-                # harvest the PREVIOUS KF's mapping results
-                self._harvest_deferred()
-            if kf_idx == 0:
-                self.map = map_ops.initialize_map(self.cfg, self.map, frame)
-                self.loop_state = loop_ops.insert_kf_bow(
-                    self.cfg, self.loop_state, self._scalar(kf_idx), frame)
-            else:
-                # VO relative motion KF_{k-1} -> KF_k only; the map composes
-                # it onto the *optimized* previous KF pose (T_kf_w = T_prev_w
-                # * T_rel, mapHandler.cpp:126-128)
-                t_rel = torch.as_tensor(self.vo.last_kf_rel.astype(np.float32),
-                                        device=self.device)
-                res = mapping.mapping_step(
-                    self.cfg, self.map, self.loop_state, frame, t_rel,
-                    run_ba=self.run_local_ba, run_lc=self.run_loop_closure,
-                    cull_redundant=self.cull_redundant_kfs)
-                self.map = res.map
-                self.loop_state = res.loop_state
-                if self.run_loop_closure:
-                    if self.async_mapping:
-                        self._deferred = (kf_idx, res.cand, res.verification)
-                    else:
-                        self._lc_decide(res.cand, res.verification, kf_idx)
-            self.kf_frame_ids.append(self.vo.frame_idx - 1)
-            self.kf_timestamps.append(timestamp)
-            self._n_kf_host = kf_idx + 1
-            if not self.async_mapping:
-                # subsequent frames ride the optimized map
-                self.vo.rebase(self.kf_pose_world(kf_idx))
+            if rec.is_kf and not self.vo.lost:
+                kf_idx = self._n_kf_host
+                if self.async_mapping:
+                    # harvest the PREVIOUS KF's mapping results
+                    self._harvest_deferred()
+                if kf_idx == 0:
+                    with trace.span("map.add_keyframe"):
+                        self.map = map_ops.initialize_map(self.cfg, self.map, frame)
+                    with trace.span("loop.insert_bow"):
+                        self.loop_state = loop_ops.insert_kf_bow(
+                            self.cfg, self.loop_state, self._scalar(kf_idx), frame)
+                else:
+                    # VO relative motion KF_{k-1} -> KF_k only; the map composes
+                    # it onto the *optimized* previous KF pose (T_kf_w = T_prev_w
+                    # * T_rel, mapHandler.cpp:126-128)
+                    t_rel = torch.as_tensor(self.vo.last_kf_rel.astype(np.float32),
+                                            device=self.device)
+                    res = mapping.mapping_step(
+                        self.cfg, self.map, self.loop_state, frame, t_rel,
+                        run_ba=self.run_local_ba, run_lc=self.run_loop_closure,
+                        cull_redundant=self.cull_redundant_kfs)
+                    self.map = res.map
+                    self.loop_state = res.loop_state
+                    if self.run_loop_closure:
+                        if self.async_mapping:
+                            self._deferred = (kf_idx, res.cand, res.verification)
+                        else:
+                            self._lc_decide(res.cand, res.verification, kf_idx)
+                self.kf_frame_ids.append(self.vo.frame_idx - 1)
+                self.kf_timestamps.append(timestamp)
+                self._n_kf_host = kf_idx + 1
+                if not self.async_mapping:
+                    # subsequent frames ride the optimized map
+                    self.vo.rebase(self.kf_pose_world(kf_idx))
         return rec
 
     # ------------------------------------------------------------------
@@ -144,6 +152,7 @@ class SLAMSystem:
         land between keyframes exactly as in the per-frame driver."""
         self._process_scanned(self._scan_chunk(imgs_l, imgs_r, timestamps))
 
+    @trace.spanned("slam.scan_chunk")
     def _scan_chunk(self, imgs_l, imgs_r, timestamps):
         """Queue one chunk's tracking scan with NO host read. Returns the
         pending state _process_scanned consumes (None if the chunk held
@@ -171,9 +180,11 @@ class SLAMSystem:
             # computes t_rel on the device)
             self._abs_prev_kf_dev = torch.eye(4, device=self.device)
             # frame 0 initializes the map (first keyframe)
-            self.map = map_ops.initialize_map(self.cfg, self.map, frame0)
-            self.loop_state = loop_ops.insert_kf_bow(
-                self.cfg, self.loop_state, self._scalar(0), frame0)
+            with trace.span("map.add_keyframe"):
+                self.map = map_ops.initialize_map(self.cfg, self.map, frame0)
+            with trace.span("loop.insert_bow"):
+                self.loop_state = loop_ops.insert_kf_bow(
+                    self.cfg, self.loop_state, self._scalar(0), frame0)
             self.kf_frame_ids.append(0)
             self.kf_timestamps.append(float(timestamps[0]))
             self._n_kf_host = 1
@@ -182,16 +193,20 @@ class SLAMSystem:
                 base_kf=0, t_rel_base=np.eye(4)))
             self.vo.frame_idx += 1
             self.vo.kf_count = 1
+            self._n_scanned = 1
             start = 1
         if start >= len(imgs_l):
             return None
         carry, poses, aux, frames = vo_mod.run_vo_scan_chunk(
             self.cfg, self._scan_carry, imgs_l[start:], imgs_r[start:],
-            ts_norm[start:].astype(np.float32), device=self.device)
+            ts_norm[start:].astype(np.float32), device=self.device,
+            first_frame=self._n_scanned)
+        self._n_scanned += len(imgs_l) - start
         self._scan_carry = carry
         return (vo_mod.pack_chunk_aux(self.cfg, poses, aux), frames, poses,
                 timestamps[start:])
 
+    @trace.spanned("slam.process_scanned")
     def _process_scanned(self, scanned) -> None:
         """Harvest one queued chunk: read the packed per-frame scalars (the
         chunk's ONE device->host transfer), queue keyframe mapping on the
@@ -202,7 +217,8 @@ class SLAMSystem:
         # decisions for the PREVIOUS chunk's LC verifications first
         self._drain_lc()
         packed_dev, frames, poses, ts_abs = scanned
-        packed = packed_dev.cpu().numpy()
+        with trace.wait("wait.chunk_scalars"):
+            packed = packed_dev.cpu().numpy()
         lc_queue = []   # (kf_idx, cand, verification), decided one chunk late
         for j in range(packed.shape[0]):
             is_kf = packed[j, 0] > 0.5
@@ -214,6 +230,7 @@ class SLAMSystem:
             ts_j = float(ts_abs[j])
             if is_kf and not self.vo.lost:
                 kf_idx = self._n_kf_host
+                trace.frame(self.vo.frame_idx)
                 res, self._abs_prev_kf_dev = mapping.mapping_step_chunk(
                     self.cfg, self.map, self.loop_state, frames, j, poses,
                     self._abs_prev_kf_dev, run_ba=self.run_local_ba,
@@ -245,13 +262,16 @@ class SLAMSystem:
                 torch.stack([_pack_lc(c, v.accepted, v.err, v.t_rel)
                              for _, c, v in lc_queue]))
 
+    @trace.spanned("slam.drain_lc")
     def _drain_lc(self) -> None:
         """Read + apply a deferred chunk's LC decisions (one transfer)."""
         if self._lc_deferred is None:
             return
         kf_ids, rows_dev = self._lc_deferred
         self._lc_deferred = None
-        for kf_idx, row in zip(kf_ids, rows_dev.cpu().numpy()):
+        with trace.wait("wait.lc_rows"):
+            rows = rows_dev.cpu().numpy()
+        for kf_idx, row in zip(kf_ids, rows):
             self._lc_decide_row(row, kf_idx)
 
     def run_sequence(self, imgs_l, imgs_r, timestamps, chunk: int = 24) -> None:
@@ -268,13 +288,14 @@ class SLAMSystem:
         pin = self.device.type == "cuda"
 
         def stage(s, e):
-            a, b = imgs_l[s:e], imgs_r[s:e]
-            if not torch.is_tensor(a):
-                a, b = (torch.from_numpy(np.ascontiguousarray(x)) for x in (a, b))
-                if pin:
-                    a, b = a.pin_memory(), b.pin_memory()
-            return (a.to(self.device, non_blocking=True),
-                    b.to(self.device, non_blocking=True))
+            with trace.span("slam.upload"):
+                a, b = imgs_l[s:e], imgs_r[s:e]
+                if not torch.is_tensor(a):
+                    a, b = (torch.from_numpy(np.ascontiguousarray(x)) for x in (a, b))
+                    if pin:
+                        a, b = a.pin_memory(), b.pin_memory()
+                return (a.to(self.device, non_blocking=True),
+                        b.to(self.device, non_blocking=True))
 
         nxt = stage(bounds[0], bounds[1])
         pending = None
@@ -289,6 +310,7 @@ class SLAMSystem:
             pending = scanned
         self._process_scanned(pending)
 
+    @trace.spanned("slam.harvest")
     def _harvest_deferred(self):
         """Apply the previous KF's deferred mapping decisions (async mode):
         LC state machine, then tracker rebase onto the corrected map pose."""
@@ -301,14 +323,16 @@ class SLAMSystem:
 
     # ------------------------------------------------------------------
     def kf_pose_world(self, kf_idx: int) -> np.ndarray:
-        return self.map.kf_pose[kf_idx].cpu().numpy()
+        with trace.wait("wait.kf_pose"):
+            return self.map.kf_pose[kf_idx].cpu().numpy()
 
     def _lc_decide(self, cand, ver, kf_curr: int):
         """The host-side LC state machine on one keyframe's candidate and
         verification: one packed read."""
-        self._lc_decide_row(
-            _pack_lc(cand, ver.accepted, ver.err, ver.t_rel).cpu().numpy(),
-            kf_curr)
+        row = _pack_lc(cand, ver.accepted, ver.err, ver.t_rel)
+        with trace.wait("wait.lc_row"):
+            row = row.cpu().numpy()
+        self._lc_decide_row(row, kf_curr)
 
     def _lc_decide_row(self, packed: np.ndarray, kf_curr: int):
         """LC state machine on an already-read [19] _pack_lc row."""
@@ -328,6 +352,7 @@ class SLAMSystem:
     def _bump(self, name: str, by: int) -> None:
         self.counters[name] = self.counters.get(name, 0) + by
 
+    @trace.spanned("slam.close_loop")
     def _close_loop(self):
         if not self.lc_pending:
             return
@@ -357,45 +382,50 @@ class SLAMSystem:
         # pose-graph size: power-of-two buckets over the occupied KF count
         # (a [6K x 6K] solve per GN step at full capacity is ~100x the work)
         k_cap = m.kf_pose.shape[0]
-        n_kf = int(m.n_kf)
+        with trace.wait("wait.n_kf"):
+            n_kf = int(m.n_kf)
         k_b = 32
         while k_b < min(n_kf, k_cap):
             k_b *= 2
         k_b = min(k_b, k_cap)
-        edges = loop_ops.build_edges(
-            m.kf_pose[:k_b], m.kf_valid[:k_b], m.full_graph[:k_b, :k_b],
-            self.cfg.slam.min_lm_ess_graph, lc_i, lc_j, lc_t,
-            max_edges=int(k_b * 4), lc_valid=lc_valid)
-        # every constraint's current KF is seeded at the constraint-implied
-        # pose (mapHandler.cpp:4005-4025); only the best-error constraint's
-        # KF is fixed, the rest stay soft edges
-        kf_pose = m.kf_pose[:k_b].cpu().numpy()
-        fixed = np.zeros(k_b, bool)
-        fixed[0] = True
-        best_err = min(p[3] for p in pend)
-        for p_i, c_i, t_rel_i, v_err in pend:
-            kf_pose[c_i] = (kf_pose[p_i] @ np.linalg.inv(t_rel_i)).astype(np.float32)
-            fixed[p_i] = True
-            if v_err <= best_err:
-                fixed[c_i] = True
-        new_b = loop_ops.optimize_pose_graph(
-            torch.as_tensor(kf_pose, device=dev), m.kf_valid[:k_b], edges,
-            torch.as_tensor(fixed, device=dev),
-            iters=min(self.cfg.slam.max_iters_pgo, 50))
-        old_b = m.kf_pose[:k_b]
-        self.map = m._replace(
-            kf_pose=torch.cat([new_b, m.kf_pose[k_b:]]),
-            pt_pos=loop_ops.rigid_correct_landmarks(
-                old_b, new_b, m.pt_pos, m.pt_last_kf, m.pt_valid),
-            ln_sp=loop_ops.rigid_correct_landmarks(
-                old_b, new_b, m.ln_sp, m.ln_last_kf, m.ln_valid),
-            ln_ep=loop_ops.rigid_correct_landmarks(
-                old_b, new_b, m.ln_ep, m.ln_last_kf, m.ln_valid))
+        with trace.span("loop.pose_graph"):
+            edges = loop_ops.build_edges(
+                m.kf_pose[:k_b], m.kf_valid[:k_b], m.full_graph[:k_b, :k_b],
+                self.cfg.slam.min_lm_ess_graph, lc_i, lc_j, lc_t,
+                max_edges=int(k_b * 4), lc_valid=lc_valid)
+            # every constraint's current KF is seeded at the constraint-implied
+            # pose (mapHandler.cpp:4005-4025); only the best-error constraint's
+            # KF is fixed, the rest stay soft edges
+            with trace.wait("wait.pgo_poses"):
+                kf_pose = m.kf_pose[:k_b].cpu().numpy()
+            fixed = np.zeros(k_b, bool)
+            fixed[0] = True
+            best_err = min(p[3] for p in pend)
+            for p_i, c_i, t_rel_i, v_err in pend:
+                kf_pose[c_i] = (kf_pose[p_i] @ np.linalg.inv(t_rel_i)).astype(np.float32)
+                fixed[p_i] = True
+                if v_err <= best_err:
+                    fixed[c_i] = True
+            new_b = loop_ops.optimize_pose_graph(
+                torch.as_tensor(kf_pose, device=dev), m.kf_valid[:k_b], edges,
+                torch.as_tensor(fixed, device=dev),
+                iters=min(self.cfg.slam.max_iters_pgo, 50))
+            old_b = m.kf_pose[:k_b]
+            self.map = m._replace(
+                kf_pose=torch.cat([new_b, m.kf_pose[k_b:]]),
+                pt_pos=loop_ops.rigid_correct_landmarks(
+                    old_b, new_b, m.pt_pos, m.pt_last_kf, m.pt_valid),
+                ln_sp=loop_ops.rigid_correct_landmarks(
+                    old_b, new_b, m.ln_sp, m.ln_last_kf, m.ln_valid),
+                ln_ep=loop_ops.rigid_correct_landmarks(
+                    old_b, new_b, m.ln_ep, m.ln_last_kf, m.ln_valid))
         # merge duplicate landmarks across the junction
         # (loopClosureFuseLandmarks, mapHandler.cpp:4425-4714)
-        self.map, n_fused, n_over = map_ops.fuse_loop_landmarks(
-            self.cfg, self.map, self._scalar(kf_prev), self._scalar(kf_curr))
-        n_fused, n_over = (int(v) for v in torch.stack([n_fused, n_over]).tolist())
+        with trace.span("map.fuse_landmarks"):
+            self.map, n_fused, n_over = map_ops.fuse_loop_landmarks(
+                self.cfg, self.map, self._scalar(kf_prev), self._scalar(kf_curr))
+        with trace.wait("wait.fuse_counts"):
+            n_fused, n_over = (int(v) for v in torch.stack([n_fused, n_over]).tolist())
         self.n_fused_landmarks += n_fused
         # no silent caps: surface candidates the N_FUSE compaction dropped
         self._bump("fuse_candidates_over_cap", n_over)
@@ -406,6 +436,7 @@ class SLAMSystem:
         self.vo.rebase(self.kf_pose_world(n_kf - 1))
 
     # ------------------------------------------------------------------
+    @trace.spanned("slam.finish")
     def finish(self, run_global_ba: bool = False):
         """Flush deferred mapping results and any pending loop closure
         (finishSLAM, mapHandler.cpp:96-111); optionally refine everything
@@ -419,24 +450,32 @@ class SLAMSystem:
         self._drain_lc()
         if self.lc_pending:
             self._close_loop()
-        self.counters["snapshot_features_over_cap"] = int(
-            self.loop_state.n_snapshot_dropped)
-        if run_global_ba and int(self.map.n_kf) >= 2:
-            (prob, win_ids, p_ids, l_ids, po_src,
-             lo_src) = map_ops.build_local_ba_problem(self.cfg, self.map,
-                                                      global_ba=True)
+        with trace.wait("wait.snapshot_dropped"):
+            self.counters["snapshot_features_over_cap"] = int(
+                self.loop_state.n_snapshot_dropped)
+        if not run_global_ba:
+            return
+        with trace.wait("wait.n_kf"):
+            n_kf = int(self.map.n_kf)
+        if n_kf >= 2:
+            with trace.span("map.ba_problem"):
+                (prob, win_ids, p_ids, l_ids, po_src,
+                 lo_src) = map_ops.build_local_ba_problem(self.cfg, self.map,
+                                                          global_ba=True)
             lm = dict(lambda0=self.cfg.slam.lambda_lba_lm,
                       lambda_k=self.cfg.slam.lambda_lba_k,
                       max_iters=self.cfg.slam.max_iters_lba)
-            if dist.is_initialized() and dist.get_world_size() > 1:
-                res = self._global_ba_sharded(prob, p_ids, l_ids, lm)
-            else:
-                res = ba_ops.solve_ba(self.cfg.camera, prob, **lm)
-            self.map = map_ops.apply_ba_result(self.cfg, self.map, res,
-                                               win_ids, p_ids, l_ids)
-            # post-BA outlier-observation deletion (mapHandler.cpp:1714-1836)
-            self.map = map_ops.apply_ba_outliers(self.cfg, self.map, res,
-                                                 po_src, lo_src)
+            with trace.span("ba.solve"):
+                if dist.is_initialized() and dist.get_world_size() > 1:
+                    res = self._global_ba_sharded(prob, p_ids, l_ids, lm)
+                else:
+                    res = ba_ops.solve_ba(self.cfg.camera, prob, **lm)
+            with trace.span("map.apply_ba"):
+                self.map = map_ops.apply_ba_result(self.cfg, self.map, res,
+                                                   win_ids, p_ids, l_ids)
+                # post-BA outlier-observation deletion (mapHandler.cpp:1714-1836)
+                self.map = map_ops.apply_ba_outliers(self.cfg, self.map, res,
+                                                     po_src, lo_src)
 
     def _global_ba_sharded(self, prob, p_ids, l_ids, lm) -> ba_ops.BAResult:
         """The global BA over every rank of the default group, its result
@@ -485,14 +524,16 @@ class SLAMSystem:
     @property
     def keyframe_trajectory(self) -> np.ndarray:
         """Optimized map KF poses (plslam_mod.cpp:538-566)."""
-        return self.map.kf_pose[:int(self.map.n_kf)].cpu().numpy()
+        with trace.wait("wait.trajectory"):
+            return self.map.kf_pose[:int(self.map.n_kf)].cpu().numpy()
 
     @property
     def all_frame_trajectory(self) -> np.ndarray:
         """Every frame re-based onto its base KF's *optimized* pose:
         T_frame = T_kf(map) @ T_rel(vo)."""
-        kf_pose = self.map.kf_pose.cpu().numpy()
-        n_kf = int(self.map.n_kf)
+        with trace.wait("wait.trajectory"):
+            kf_pose = self.map.kf_pose.cpu().numpy()
+            n_kf = int(self.map.n_kf)
         out = []
         for r in self.vo.records:
             if r.t_rel_base is None or n_kf == 0:

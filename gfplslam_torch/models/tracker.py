@@ -25,7 +25,7 @@ from gfplslam_torch.models.frame import StereoFrame, estimate_line_uncertainty
 from gfplslam_torch.ops import camera as cam_ops
 from gfplslam_torch.ops import matching as match_ops
 from gfplslam_torch.ops.hamming import BIG, hamming_matrices, hamming_matrix
-from gfplslam_torch.utils import se3
+from gfplslam_torch.utils import se3, trace
 from gfplslam_torch.utils.robust import masked_stdv_mad_nozero
 
 # entropy constant 3(1 + log 2pi) in f32 (:2315)
@@ -152,10 +152,13 @@ def cross_frame_matching(cfg: Config, prev: StereoFrame, curr: StereoFrame,
     """Hybrid cross-frame matching (crossFrameMatching_Hybrid, :451-695).
     ``dt_pred`` is the constant-velocity T_curr<-prev used for projection."""
     # both cross-frame matrices in one kernel launch
-    d_pt, d_ln = hamming_matrices([_point_problem(prev, curr),
-                                   _line_problem(prev, curr)])
-    pts, pt_curr_idx = cross_match_points(cfg, prev, curr, dt_pred, d_pt)
-    lns, ln_curr_idx = cross_match_lines(cfg, prev, curr, d_ln)
+    with trace.span("track.cross_hamming"):
+        d_pt, d_ln = hamming_matrices([_point_problem(prev, curr),
+                                       _line_problem(prev, curr)])
+    with trace.span("track.cross_points"):
+        pts, pt_curr_idx = cross_match_points(cfg, prev, curr, dt_pred, d_pt)
+    with trace.span("track.cross_lines"):
+        lns, ln_curr_idx = cross_match_lines(cfg, prev, curr, d_ln)
     return CrossMatches(points=pts, lines=lns, pt_curr_idx=pt_curr_idx,
                         ln_curr_idx=ln_curr_idx)
 
@@ -200,14 +203,18 @@ def track_step(cfg: Config, state: TrackerState, prev: StereoFrame,
     """One tracking iteration: predict, match, cut, optimize, decide KF
     (insertStereoPair -> optimizePose -> needNewKF,
     stereoFrameHandler.cpp:83-151, 1939-2030, 2309-2349)."""
-    dt_pred = se3.inverse_se3(state.dt_store)
-    matches = cross_frame_matching(cfg, prev, curr, dt_pred)
-    opt_lines = (apply_linecut(cfg, prev, matches, dt_pred)
-                 if cfg.stvo.use_line_conf_cut and cfg.stvo.has_lines
-                 else matches.lines)
-    res = pose_opt.optimize_pose(cfg.camera, dt_pred, matches.points,
-                                 opt_lines, cfg.optimizer, delta_t)
-    return finalize_track(cfg, state, matches, res)
+    with trace.timed("vo.track"):
+        dt_pred = se3.inverse_se3(state.dt_store)
+        matches = cross_frame_matching(cfg, prev, curr, dt_pred)
+        opt_lines = matches.lines
+        if cfg.stvo.use_line_conf_cut and cfg.stvo.has_lines:
+            with trace.span("track.linecut"):
+                opt_lines = apply_linecut(cfg, prev, matches, dt_pred)
+        with trace.span("track.pose_opt"):
+            res = pose_opt.optimize_pose(cfg.camera, dt_pred, matches.points,
+                                         opt_lines, cfg.optimizer, delta_t)
+        with trace.span("track.finalize"):
+            return finalize_track(cfg, state, matches, res)
 
 
 def finalize_track(cfg: Config, state: TrackerState, matches: CrossMatches,

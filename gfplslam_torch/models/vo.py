@@ -23,7 +23,8 @@ import torch
 from gfplslam_torch.config import Config
 from gfplslam_torch.models import tracker as trk
 from gfplslam_torch.models.frame import StereoFrame, process_stereo_pair
-from gfplslam_torch.utils.timing import StageTimer, TimeLog, TimeLogWriter
+from gfplslam_torch.utils import trace
+from gfplslam_torch.utils.timing import STAGE_SPANS, TimeLog, TimeLogWriter
 
 CUDA = torch.device("cuda")
 
@@ -44,14 +45,15 @@ def _stack_tree(items):
 def _scan_step(cfg: Config, carry, img_l, img_r, ts):
     """One frame of the scan: front-end, tracking, KF bookkeeping."""
     st, prev_frame, prev_ts, t_abs = carry
-    frame = process_stereo_pair(img_l, img_r, cfg, st.fast_th)
-    out = trk.track_step(cfg, st, prev_frame, frame,
-                         torch.clamp(ts - prev_ts, min=1e-3))
-    t_abs_new = t_abs @ out.state.dt_store
-    # KF bookkeeping reset (currFrameIsKF) without touching t_abs
-    st_kf = trk.mark_keyframe(out.state)
-    st_next = trk.TrackerState(*(torch.where(out.need_kf, a, b)
-                                 for a, b in zip(st_kf, out.state)))
+    with trace.span("vo.scan_step"):
+        frame = process_stereo_pair(img_l, img_r, cfg, st.fast_th)
+        out = trk.track_step(cfg, st, prev_frame, frame,
+                             torch.clamp(ts - prev_ts, min=1e-3))
+        t_abs_new = t_abs @ out.state.dt_store
+        # KF bookkeeping reset (currFrameIsKF) without touching t_abs
+        st_kf = trk.mark_keyframe(out.state)
+        st_next = trk.TrackerState(*(torch.where(out.need_kf, a, b)
+                                     for a, b in zip(st_kf, out.state)))
     return (st_next, frame, ts, t_abs_new), out, t_abs_new
 
 
@@ -62,6 +64,7 @@ def init_scan_carry(cfg: Config, img_l, img_r, timestamp, *,
     looser-gated extractInitialStereoFeatures, stereoFrame.cpp:148-336).
     Returns (carry, frame0)."""
     st0 = trk.initial_state(cfg, device)
+    trace.frame(0)
     frame0 = process_stereo_pair(
         _as_device(img_l, device), _as_device(img_r, device), cfg,
         _as_device(float(cfg.tracking.fast_min_th), device, torch.float32))
@@ -71,11 +74,12 @@ def init_scan_carry(cfg: Config, img_l, img_r, timestamp, *,
 
 
 def run_vo_scan_chunk(cfg: Config, carry, imgs_l, imgs_r, timestamps, *,
-                      device: torch.device = CUDA):
+                      device: torch.device = CUDA, first_frame: int = 1):
     """One chunk of the whole-sequence scan, tracker carry in and out.
 
     Args: carry from :func:`init_scan_carry` or a previous chunk;
-    imgs [T, H, W]; timestamps [T].
+    imgs [T, H, W]; timestamps [T]; ``first_frame``, the sequence index of
+    the chunk's first frame (the frame id its spans carry).
     Returns (carry', poses [T, 4, 4] absolute cam->world, aux dict of [T]
     tensors, frames: the per-frame StereoFrame with leading T axis)."""
     imgs_l = _as_device(imgs_l, device)
@@ -83,6 +87,7 @@ def run_vo_scan_chunk(cfg: Config, carry, imgs_l, imgs_r, timestamps, *,
     ts = _as_device(timestamps, device, torch.float32)
     poses, outs, frames = [], [], []
     for i in range(imgs_l.shape[0]):
+        trace.frame(first_frame + i)
         carry, out, pose = _scan_step(cfg, carry, imgs_l[i], imgs_r[i], ts[i])
         poses.append(pose)
         outs.append(out)
@@ -119,6 +124,7 @@ def run_vo_scan(cfg: Config, imgs_l, imgs_r, timestamps, *,
     carry, _ = init_scan_carry(cfg, imgs_l[0], imgs_r[0], ts[0], device=device)
     poses, outs = [], []
     for i in range(1, imgs_l.shape[0]):
+        trace.frame(i)
         carry, out, pose = _scan_step(cfg, carry, imgs_l[i], imgs_r[i], ts[i])
         poses.append(pose)
         outs.append(out)
@@ -165,68 +171,65 @@ class VisualOdometry:
         ride the optimized map, plslam_mod.cpp:471-477)."""
         self.t_base_w = np.asarray(t_base_w, np.float64).copy()
 
-    def _frontend(self, img_l, img_r, log: TimeLog, timer: StageTimer,
-                  fast_th=None) -> StereoFrame:
-        """Front-end hook: the whole front-end queued on the device with no
-        host read (the frame's host-visible scalars come back in one read at
-        the end of :meth:`process`). ``TimedVO`` overrides it with one
-        synchronized call per reference TimeLog stage. ``fast_th``
-        overrides the adaptive threshold (the frame-0 bootstrap passes the
-        FAST floor)."""
-        dev = torch.device(self.device)
-        th = self.state.fast_th if fast_th is None else fast_th
-        frame = process_stereo_pair(_as_device(img_l, dev),
-                                    _as_device(img_r, dev), self.cfg, th)
-        log.time_pt_extract = timer.lap()
-        return frame
-
-    def _track(self, frame: StereoFrame, delta_t: float, log: TimeLog,
-               timer: StageTimer) -> trk.TrackOutput:
+    def _track(self, frame: StereoFrame, delta_t: float) -> trk.TrackOutput:
         """Tracking hook: one ``track_step``, queued with no host read."""
-        out = trk.track_step(self.cfg, self.state, self.prev_frame, frame,
-                             _as_device(delta_t, torch.device(self.device),
-                                        torch.float32))
-        log.time_pose_optim = timer.lap()
-        return out
+        return trk.track_step(self.cfg, self.state, self.prev_frame, frame,
+                              _as_device(delta_t, torch.device(self.device),
+                                         torch.float32))
 
     def process(self, img_l: np.ndarray, img_r: np.ndarray,
                 timestamp: float) -> FrameRecord:
-        """One camera frame. Returns this frame's record."""
+        """One camera frame. Returns this frame's record.
+
+        The whole front-end and tracking step are queued on the device with
+        no host read; the frame's host-visible scalars come back in one read
+        at the end. The TimeLog holds the front-end's and the tracker's host
+        time (``time_pt_extract``, ``time_pose_optim``), and every stage's
+        wall time when the tracer synchronises each span
+        (``trace.enable(sync=True)``)."""
         dev = torch.device(self.device)
-        timer = StageTimer()
         log = TimeLog()
-        if self.state is None:
-            self.state = trk.initial_state(self.cfg, dev)
-        # frame 0 detects at the FAST floor
-        boot_th = (_as_device(float(self.cfg.tracking.fast_min_th), dev,
-                              torch.float32)
-                   if self.prev_frame is None else None)
-        frame = self._frontend(img_l, img_r, log, timer, fast_th=boot_th)
+        trace.frame(self.frame_idx)
+        since = trace.mark()
+        with trace.span("vo.process"):
+            if self.state is None:
+                self.state = trk.initial_state(self.cfg, dev)
+            # frame 0 detects at the FAST floor
+            th = (_as_device(float(self.cfg.tracking.fast_min_th), dev,
+                             torch.float32)
+                  if self.prev_frame is None else self.state.fast_th)
+            frame = process_stereo_pair(_as_device(img_l, dev),
+                                        _as_device(img_r, dev), self.cfg, th)
+            log.time_pt_extract = trace.last_s("vo.frontend")
 
-        if self.prev_frame is None:
-            n_pt0, n_ln0 = torch.stack([frame.points.valid.sum(),
-                                        frame.lines.valid.sum()]).tolist()
-            log.num_pt_stereo, log.num_ln_stereo = int(n_pt0), int(n_ln0)
-            self.prev_frame = frame
-            self.prev_time = timestamp
-            self.kf_count = 1
-            self.last_kf_rel = np.eye(4)
-            rec = FrameRecord(timestamp, self.t_base_w.copy(), True,
-                              log.num_pt_stereo, log.num_ln_stereo, True,
-                              base_kf=0, t_rel_base=np.eye(4))
-            self.records.append(rec)
-            self.timelog.append(log)
-            self.frame_idx += 1
-            return rec
+            if self.prev_frame is None:
+                with trace.wait("wait.vo_frame"):
+                    n_pt0, n_ln0 = torch.stack([frame.points.valid.sum(),
+                                                frame.lines.valid.sum()]).tolist()
+                log.num_pt_stereo, log.num_ln_stereo = int(n_pt0), int(n_ln0)
+                self.prev_frame = frame
+                self.prev_time = timestamp
+                self.kf_count = 1
+                self.last_kf_rel = np.eye(4)
+                rec = FrameRecord(timestamp, self.t_base_w.copy(), True,
+                                  log.num_pt_stereo, log.num_ln_stereo, True,
+                                  base_kf=0, t_rel_base=np.eye(4))
+                self.records.append(rec)
+                self.timelog.append(log)
+                self.frame_idx += 1
+                return rec
 
-        delta_t = max(timestamp - self.prev_time, 1e-3)
-        out = self._track(frame, delta_t, log, timer)
-        # every host-visible scalar of the frame in ONE device->host read
-        packed = torch.cat([
-            torch.stack([frame.points.valid.sum(), frame.lines.valid.sum(),
-                         out.n_inliers_pt, out.n_inliers_ln]).float(),
-            torch.stack([out.need_kf, out.pose.accepted, out.track_lost]).float(),
-            out.state.t_cam_w.reshape(-1).float()]).cpu().numpy()
+            delta_t = max(timestamp - self.prev_time, 1e-3)
+            out = self._track(frame, delta_t)
+            log.time_pose_optim = trace.last_s("vo.track")
+            # every host-visible scalar of the frame in ONE device->host read
+            with trace.wait("wait.vo_frame"):
+                packed = torch.cat([
+                    torch.stack([frame.points.valid.sum(), frame.lines.valid.sum(),
+                                 out.n_inliers_pt, out.n_inliers_ln]).float(),
+                    torch.stack([out.need_kf, out.pose.accepted,
+                                 out.track_lost]).float(),
+                    out.state.t_cam_w.reshape(-1).float()]).cpu().numpy()
         n_pt_st, n_ln_st, n_pt_x, n_ln_x = packed[:4]
         need_kf, accepted, lost = (bool(v) for v in packed[4:7] > 0.5)
         t_rel = packed[7:23].reshape(4, 4).astype(np.float64)
@@ -234,10 +237,11 @@ class VisualOdometry:
         log.num_ln_stereo = int(n_ln_st)
         log.num_pt_cross = int(n_pt_x)
         log.num_ln_cross = int(n_ln_x)
-        log.time_track = sum(getattr(log, f) for f in (
-            "time_pt_extract", "time_ln_detect", "time_ln_descri",
-            "time_pt_stereo", "time_ln_stereo", "time_pt_cross",
-            "time_ln_cross", "time_ln_cut", "time_pose_optim"))
+        if trace.synchronizing():
+            spans = trace.totals_since(since)
+            for f, names in STAGE_SPANS.items():
+                setattr(log, f, sum(spans.get(n, 0.0) for n in names))
+        log.time_track = sum(getattr(log, f) for f in STAGE_SPANS)
 
         self.state = out.state
         if need_kf:

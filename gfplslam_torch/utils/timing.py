@@ -2,14 +2,16 @@
 
 The reference records wall time + feature counts per pipeline stage and dumps
 one row per frame to ``<out>_Log.txt`` (plslam_mod.cpp:494-513). Metric names
-are kept identical so BASELINE comparisons hold. On TPU most stages fuse into
-one or two device programs; stages that share a program report the program's
-share under the fused name and the driver records the fused total too.
+are kept identical so BASELINE comparisons hold. The port queues a whole
+frame with no host read, so by default ``VisualOdometry`` fills only
+``time_pt_extract`` and ``time_pose_optim``, with the host time of the
+``vo.frontend`` and ``vo.track`` spans; when the tracer synchronises every
+span (``utils/trace.py``, ``run_slam --timing``) each stage field is the sum
+of the stage spans :data:`STAGE_SPANS` names for it.
 """
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import List
 
@@ -19,6 +21,21 @@ FIELDS = [
     "time_ln_cut", "time_pose_optim",
     "num_pt_stereo", "num_ln_stereo", "num_pt_cross", "num_ln_cross",
 ]
+
+# each stage field of the TimeLog -> the spans of the served path it sums
+# (the paired Hamming launches fall to the points' fields, which use them
+# first); ``time_track`` is the sum of these nine
+STAGE_SPANS = {
+    "time_pt_extract": ("frontend.points",),
+    "time_ln_detect": ("frontend.lines",),
+    "time_ln_descri": ("frontend.line_desc",),
+    "time_pt_stereo": ("frontend.stereo_hamming", "frontend.stereo_points"),
+    "time_ln_stereo": ("frontend.stereo_lines",),
+    "time_pt_cross": ("track.cross_hamming", "track.cross_points"),
+    "time_ln_cross": ("track.cross_lines",),
+    "time_ln_cut": ("track.linecut",),
+    "time_pose_optim": ("track.pose_opt", "track.finalize"),
+}
 
 
 @dataclass
@@ -56,16 +73,3 @@ class TimeLogWriter:
             f.write("# " + " ".join(FIELDS) + "\n")
             for r in self.rows:
                 f.write(r.row() + "\n")
-
-
-class StageTimer:
-    """Host-side wall timer for device-program stages."""
-
-    def __init__(self):
-        self.t0 = time.perf_counter()
-
-    def lap(self) -> float:
-        t = time.perf_counter()
-        dt = t - self.t0
-        self.t0 = t
-        return dt

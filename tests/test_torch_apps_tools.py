@@ -1,8 +1,9 @@
-"""The port's other entry points: the timed VO driver, the streaming
-``run_slam --chunk`` and ``--vo-only --timing`` modes, ``batch_eval``, and
-``acceptance``'s configurations against the reference's.
+"""The port's other entry points: the VO under the tracer's sync mode, the
+streaming ``run_slam --chunk`` and ``--vo-only --timing`` modes,
+``batch_eval``, and ``acceptance``'s configurations against the reference's.
 
-``TimedVO`` runs the ops of ``VisualOdometry`` in the same order, so its
+The sync mode (``run_slam --timing``) runs the served path's ops in the same
+order and only adds a device synchronise at the end of each span, so its
 trajectory must be equal, not close."""
 
 import dataclasses
@@ -20,9 +21,8 @@ from gfplslam_torch.apps import acceptance, batch_eval, run_slam
 from gfplslam_torch.config import (CameraParams, CapacityParams, Config,
                                    OrbParams)
 from gfplslam_torch.io import synthetic
-from gfplslam_torch.models.timed_vo import TimedVO
 from gfplslam_torch.models.vo import VisualOdometry
-from gfplslam_torch.utils import convert
+from gfplslam_torch.utils import convert, trace
 from gfplslam_torch.utils.timing import FIELDS
 from gfplslam_torch.utils.trajectory import read_tum
 
@@ -37,10 +37,17 @@ def test_timed_vo_equals_vo():
     world = synthetic.make_world(n_frames=6, n_points=300, n_lines=40, seed=4)
     frames = [synthetic.render_frame(world, i, noise=1.0) for i in range(6)]
     runs = []
-    for cls in (VisualOdometry, TimedVO):
-        vo = cls(SMALL, device=CPU)
-        for i, (il, ir) in enumerate(frames):
-            vo.process(il, ir, world.timestamps[i])
+    for sync in (False, True):
+        vo = VisualOdometry(SMALL, device=CPU)
+        if sync:
+            trace.reset()
+            trace.enable(sync=True)
+        try:
+            for i, (il, ir) in enumerate(frames):
+                vo.process(il, ir, world.timestamps[i])
+        finally:
+            trace.disable()
+            trace.reset()
         runs.append(vo)
     plain, timed = runs
     np.testing.assert_array_equal(timed.trajectory, plain.trajectory)

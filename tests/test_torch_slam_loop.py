@@ -185,9 +185,9 @@ class DriftingVO(vo_mod.VisualOdometry):
         self._drift = np.asarray(drift, np.float64)
         self.steps = []
 
-    def _track(self, frame, delta_t, log, timer):
+    def _track(self, frame, delta_t):
         state, prev = self.state, self.prev_frame
-        out = super()._track(frame, delta_t, log, timer)
+        out = super()._track(frame, delta_t)
         self.steps.append(_step_record(self.frame_idx, state, prev, frame, delta_t,
                                        out, tracker._entropy))
         return out
