@@ -7,6 +7,14 @@ keyframe decision, adaptive FAST threshold and track-loss counting. The
 tracker state is a NamedTuple of device tensors; one ``track_step`` reads
 the previous state and frames and returns the new state with no host read.
 
+On CUDA tensors everything after the cross-frame Hamming launch
+(:func:`track_body`: matching, line cut, pose solve, state update) runs as
+the replay of a CUDA graph, captured once per process for each key of
+:func:`graph_key` and kept at module level, so engines that follow each
+other share it; the Hamming launch stays eager, counted per call. On CPU
+tensors the same body runs eagerly, as it does on the card under the
+min-eigenvalue line cut, whose solver a capture refuses.
+
 Pose convention: ``t_cam_w`` maps camera->world, ``dt_store`` =
 T_prev<-curr, the optimizer works on T_curr<-prev
 (``Tfw_curr = Tfw_prev * DT_store``, stereoFrameHandler.cpp:1984-1996).
@@ -14,6 +22,7 @@ T_prev<-curr, the optimizer works on T_curr<-prev
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -25,7 +34,7 @@ from gfplslam_torch.models.frame import StereoFrame, estimate_line_uncertainty
 from gfplslam_torch.ops import camera as cam_ops
 from gfplslam_torch.ops import matching as match_ops
 from gfplslam_torch.ops.hamming import BIG, hamming_matrices, hamming_matrix
-from gfplslam_torch.utils import se3, trace
+from gfplslam_torch.utils import cuda_graph, se3, trace
 from gfplslam_torch.utils.robust import masked_stdv_mad_nozero
 
 # entropy constant 3(1 + log 2pi) in f32 (:2315)
@@ -147,14 +156,23 @@ def cross_match_lines(cfg: Config, prev: StereoFrame, curr: StereoFrame,
     return lns, torch.where(lm.valid, lm.idx, torch.full_like(lm.idx, -1))
 
 
-def cross_frame_matching(cfg: Config, prev: StereoFrame, curr: StereoFrame,
-                         dt_pred: torch.Tensor) -> CrossMatches:
-    """Hybrid cross-frame matching (crossFrameMatching_Hybrid, :451-695).
-    ``dt_pred`` is the constant-velocity T_curr<-prev used for projection."""
-    # both cross-frame matrices in one kernel launch
+def cross_hamming(prev: StereoFrame, curr: StereoFrame):
+    """Both cross-frame Hamming matrices (points, lines) in one kernel
+    launch."""
     with trace.span("track.cross_hamming"):
-        d_pt, d_ln = hamming_matrices([_point_problem(prev, curr),
-                                       _line_problem(prev, curr)])
+        return hamming_matrices([_point_problem(prev, curr),
+                                 _line_problem(prev, curr)])
+
+
+def cross_frame_matching(cfg: Config, prev: StereoFrame, curr: StereoFrame,
+                         dt_pred: torch.Tensor, d_pt: torch.Tensor | None = None,
+                         d_ln: torch.Tensor | None = None) -> CrossMatches:
+    """Hybrid cross-frame matching (crossFrameMatching_Hybrid, :451-695).
+    ``dt_pred`` is the constant-velocity T_curr<-prev used for projection;
+    ``d_pt``, ``d_ln`` the cross-frame Hamming matrices, formed here when
+    not given."""
+    if d_pt is None:
+        d_pt, d_ln = cross_hamming(prev, curr)
     with trace.span("track.cross_points"):
         pts, pt_curr_idx = cross_match_points(cfg, prev, curr, dt_pred, d_pt)
     with trace.span("track.cross_lines"):
@@ -202,19 +220,72 @@ def track_step(cfg: Config, state: TrackerState, prev: StereoFrame,
                curr: StereoFrame, delta_t) -> TrackOutput:
     """One tracking iteration: predict, match, cut, optimize, decide KF
     (insertStereoPair -> optimizePose -> needNewKF,
-    stereoFrameHandler.cpp:83-151, 1939-2030, 2309-2349)."""
+    stereoFrameHandler.cpp:83-151, 1939-2030, 2309-2349). The Hamming
+    launch runs eagerly; the rest as a graph's replay on CUDA tensors
+    (:func:`track_body` eagerly on CPU ones)."""
     with trace.timed("vo.track"):
-        dt_pred = se3.inverse_se3(state.dt_store)
-        matches = cross_frame_matching(cfg, prev, curr, dt_pred)
-        opt_lines = matches.lines
-        if cfg.stvo.use_line_conf_cut and cfg.stvo.has_lines:
-            with trace.span("track.linecut"):
-                opt_lines = apply_linecut(cfg, prev, matches, dt_pred)
-        with trace.span("track.pose_opt"):
-            res = pose_opt.optimize_pose(cfg.camera, dt_pred, matches.points,
-                                         opt_lines, cfg.optimizer, delta_t)
-        with trace.span("track.finalize"):
-            return finalize_track(cfg, state, matches, res)
+        d_pt, d_ln = cross_hamming(prev, curr)
+        if not curr.points.xy.is_cuda or _refuses_capture(cfg):
+            return track_body(cfg, state, prev, curr, delta_t, d_pt, d_ln)
+        delta_t = torch.as_tensor(delta_t, dtype=torch.float32,
+                                  device=curr.points.xy.device)
+        args = (state, prev, curr, delta_t, d_pt, d_ln)
+        key = graph_key(cfg, *args)
+        step = _GRAPHS.get(key)
+        if step is None:
+            with trace.span("track.capture"):
+                step = _GRAPHS[key] = cuda_graph.CapturedStep(
+                    functools.partial(track_body, cfg), args)
+            trace.count("track.graph_captures", 1)
+            return step.first
+        with trace.span("track.replay"):
+            out = step(args)
+        trace.count("track.graph_replays", 1)
+        return out
+
+
+def track_body(cfg: Config, state: TrackerState, prev: StereoFrame,
+               curr: StereoFrame, delta_t, d_pt: torch.Tensor,
+               d_ln: torch.Tensor) -> TrackOutput:
+    """:func:`track_step` after the cross-frame Hamming launch, whose two
+    matrices it takes: matching, line cut, pose solve and state update,
+    with no host read and no host-to-device copy (what a graph captures)."""
+    dt_pred = se3.inverse_se3(state.dt_store)
+    matches = cross_frame_matching(cfg, prev, curr, dt_pred, d_pt, d_ln)
+    opt_lines = matches.lines
+    if cfg.stvo.use_line_conf_cut and cfg.stvo.has_lines:
+        with trace.span("track.linecut"):
+            opt_lines = apply_linecut(cfg, prev, matches, dt_pred)
+    with trace.span("track.pose_opt"):
+        res = pose_opt.optimize_pose(cfg.camera, dt_pred, matches.points,
+                                     opt_lines, cfg.optimizer, delta_t)
+    with trace.span("track.finalize"):
+        return finalize_track(cfg, state, matches, res)
+
+
+def _refuses_capture(cfg: Config) -> bool:
+    """Whether the body calls what a CUDA graph capture refuses: the
+    min-eigenvalue line cut's batched ``torch.linalg.eigvalsh`` (cuSOLVER's
+    batched Jacobi solver invalidates the capture)."""
+    return (cfg.stvo.use_line_conf_cut and cfg.stvo.has_lines
+            and not cfg.stvo.max_vol_line_cut)
+
+
+# the tracker's captured steps, by graph_key (module state: every engine
+# of the process replays them)
+_GRAPHS: dict = {}
+
+
+def graph_key(cfg: Config, state: TrackerState, prev: StereoFrame,
+              curr: StereoFrame, delta_t: torch.Tensor, d_pt: torch.Tensor,
+              d_ln: torch.Tensor) -> tuple:
+    """What a captured :func:`track_body` is specific to: the device, every
+    input leaf's shape and dtype, and the settings the body reads (captured
+    as constants: the line-cut switches, the solver's iteration counts and
+    thresholds, the camera, the keyframe rules)."""
+    return (curr.points.xy.device,
+            cuda_graph.signature((state, prev, curr, delta_t, d_pt, d_ln)),
+            cfg.stvo, cfg.tracking, cfg.optimizer, cfg.camera, cfg.slam)
 
 
 def finalize_track(cfg: Config, state: TrackerState, matches: CrossMatches,

@@ -96,7 +96,9 @@ def left_jacobian_so3(phi: torch.Tensor) -> torch.Tensor:
 def _homogeneous(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     top = torch.cat([r, t[..., :, None]], -1)
     bot = torch.zeros_like(top[..., :1, :])
-    bot[..., 0, 3] = 1.0
+    # fill_ on the device: a Python scalar assigned by indexing is a
+    # host-to-device copy, which a CUDA graph capture refuses
+    bot[..., 0, 3].fill_(1.0)
     return torch.cat([top, bot], -2)
 
 

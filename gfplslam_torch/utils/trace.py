@@ -22,8 +22,11 @@ between host dispatch and device work (``run_slam --timing``).
 
 Spans mark host dispatch. Nothing records while a CUDA stream is being
 captured into a graph; under a later replay, the span around the replay
-stands for the spans inside it. The tracer is process state for the one
-thread that drives the engine.
+stands for the spans inside it. Counts made while a graph is captured are
+kept for it instead (:func:`captured_counts`), and :func:`recount` adds
+them again at each replay, so a counter counts a replayed step as it
+counts an eager one. The tracer is process state for the one thread that
+drives the engine.
 """
 
 from __future__ import annotations
@@ -82,6 +85,8 @@ SPANS: dict[str, str] = {
     "track.linecut": _LAYER_VO,
     "track.pose_opt": _LAYER_VO,
     "track.finalize": _LAYER_VO,
+    "track.capture": _LAYER_VO,
+    "track.replay": _LAYER_VO,
     "wait.vo_frame": _LAYER_VO,
     # mapping step, local BA, loop closure (models/mapping.py, ba.py, slam.py)
     "mapping.step": _LAYER_MAP,
@@ -108,6 +113,8 @@ COUNTERS: dict[str, str] = {
     "pgo.steps_active": "of those, steps that began not yet converged",
     "ba.obs_pt": "valid point observations of each local BA problem",
     "ba.obs_ln": "valid line observations of each local BA problem",
+    "track.graph_captures": "CUDA graphs captured of the tracker's step after its Hamming launch",
+    "track.graph_replays": "tracker steps run as a replay of such a graph",
 }
 
 
@@ -147,6 +154,14 @@ class Snapshot:
         return i
 
 
+class CapturedCounts(NamedTuple):
+    """The counts made while one graph was captured: ``host`` as (name,
+    n), ``device`` as (name, tensor, negate), each tensor one the graph
+    rewrites at every replay."""
+    host: list
+    device: list
+
+
 class Tracer:
     """The recorder behind the module's functions."""
 
@@ -159,6 +174,7 @@ class Tracer:
         self.host: dict = {}        # name -> [int, ...]
         self.device: list = []      # (name, 0-d tensor, negate)
         self.last_s: dict = {}      # timed span name -> its last duration, s
+        self.capture: CapturedCounts | None = None  # while a graph is captured
 
 
 _T = Tracer()
@@ -291,7 +307,9 @@ def frame(i: int | None) -> None:
 
 def count(name: str, n: int) -> None:
     """Add the host integer ``n`` to counter ``name``."""
-    if _T.on or _autograd_profiler._is_profiler_enabled:
+    if _T.capture is not None:
+        _T.capture.host.append((name, int(n)))
+    elif _T.on or _autograd_profiler._is_profiler_enabled:
         _T.host.setdefault(name, []).append(int(n))
 
 
@@ -299,8 +317,36 @@ def count_device(name: str, t: torch.Tensor, negate: bool = False) -> None:
     """Add the device value ``t`` (a 0-d tensor the program computed
     anyway) to counter ``name``; with ``negate``, a flag's complement
     ``1 - t``. Holds a reference: no device op, no host read."""
-    if (_T.on or _autograd_profiler._is_profiler_enabled) and not _capturing():
+    if _T.capture is not None:
+        _T.capture.device.append((name, t, negate))
+    elif (_T.on or _autograd_profiler._is_profiler_enabled) and not _capturing():
         _T.device.append((name, t, negate))
+
+
+@contextlib.contextmanager
+def captured_counts():
+    """Around the capture of a graph: every :func:`count` and
+    :func:`count_device` inside is kept in the yielded
+    :class:`CapturedCounts`, whether or not recording is on, and counts
+    nothing now."""
+    outer, _T.capture = _T.capture, CapturedCounts([], [])
+    try:
+        yield _T.capture
+    finally:
+        _T.capture = outer
+
+
+def recount(counts: CapturedCounts, device_values: torch.Tensor | None) -> None:
+    """After a replay of the graph whose capture made ``counts``: count
+    each of them again, the device ones from ``device_values``, the
+    replay's values of their tensors in order (a copy, stacked)."""
+    if not (_T.on or _autograd_profiler._is_profiler_enabled):
+        return
+    for name, n in counts.host:
+        count(name, n)
+    if counts.device:
+        for (name, _, negate), v in zip(counts.device, device_values.unbind(0)):
+            count_device(name, v, negate)
 
 
 def enable(sync: bool = False) -> None:
