@@ -502,9 +502,10 @@ def optimize_pose_graph(kf_pose: torch.Tensor, kf_valid: torch.Tensor,
                         edges: PoseGraphEdges, fixed: torch.Tensor,
                         iters: int = 50) -> torch.Tensor:
     """Dense GN on an SE(3) pose graph: residual r = log(T_ij^-1 T_i^-1 T_j),
-    identity information (:4052-4072; replaces g2o LM + Cholmod). Runs
-    ``iters`` steps; once the largest twist change is <= 1e-7 (where the
-    reference's loop stops) they change nothing."""
+    identity information (:4052-4072; replaces g2o LM + Cholmod). Runs at
+    most ``iters`` steps and stops after the first whose largest twist
+    change is <= 1e-7, where the reference's loop stops: a later step
+    would change nothing. Each step ends with one host read of that change."""
     k = kf_pose.shape[0]
     ei, ej = edges.i, edges.j
     w = edges.valid.to(kf_pose.dtype)
@@ -542,15 +543,15 @@ def optimize_pose_graph(kf_pose: torch.Tensor, kf_valid: torch.Tensor,
         return x - torch.where(free[:, None], dx, 0.0)
 
     x = kf_pose.new_zeros((k, 6))
-    done = torch.zeros((), dtype=torch.bool, device=kf_pose.device)
-    trace.count("pgo.steps_dispatched", iters)
     for _ in range(iters):
-        # a step that begins converged is a no-op on the device
-        trace.count_device("pgo.steps_active", done, negate=True)
+        trace.count("pgo.steps_dispatched", 1)
+        trace.count("pgo.steps_active", 1)
         x_new = gn_step(x)
         delta = torch.abs(x_new - x).max()
-        x = torch.where(done, x, x_new)
-        done = done | ~(delta > 1e-7)
+        x = x_new
+        with trace.wait("wait.pgo_step"):
+            if not bool(delta > 1e-7):
+                break
     return kf_pose @ se3.expmap_se3(x)
 
 

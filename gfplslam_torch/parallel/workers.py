@@ -1,10 +1,12 @@
-"""Per-rank entry points for :func:`gfplslam_torch.parallel.multihost.launch`.
+"""Per-rank entry points for :func:`gfplslam_torch.parallel.multihost.launch`
+and :func:`~gfplslam_torch.parallel.multihost.spawn_peers`.
 
-The tests, ``apps/bench_dist_ba.py`` and ``chip_smoke.py`` run the
-distributed paths in spawned ranks through these functions: a spawned rank
-imports this module and torch, never the caller's module (the test tree
-imports JAX). Each takes host data, moves it to the rank's ``device``,
-runs on the default group, and returns host data, the same on every rank.
+The tests, ``apps/bench_dist_ba.py``, ``apps/batch_eval.py``, the
+benchmark's batch driver and ``chip_smoke.py`` run the distributed paths
+in spawned ranks through these functions: a spawned rank imports this
+module and torch, never the caller's module (the test tree imports JAX).
+Each takes host data, moves it to the rank's ``device``, runs on the
+default group, and returns host data, the same on every rank.
 """
 
 from __future__ import annotations
@@ -76,3 +78,11 @@ def vo_batch(cfg, imgs_l, imgs_r, timestamps, device):
     launches = {"fast9_score": fast_score_cuda.launches,
                 "hamming_matrix": hamming_cuda.launches}
     return poses.cpu(), {k: v.cpu() for k, v in aux.items()}, launches, secs
+
+
+def slam_batch(cfg, imgs_l, imgs_r, timestamps, device, chunk: int = 24):
+    """``run_slam_batch`` over the default group: the batch's results on
+    the host. A peer records as rank 0 does (``run_slam_batch``)."""
+    from gfplslam_torch.parallel.batch import run_slam_batch
+    return run_slam_batch(cfg, imgs_l, imgs_r, timestamps, dist.group.WORLD,
+                          chunk=chunk, device=torch.device(device))

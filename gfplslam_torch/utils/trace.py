@@ -27,6 +27,12 @@ kept for it instead (:func:`captured_counts`), and :func:`recount` adds
 them again at each replay, so a counter counts a replayed step as it
 counts an eager one. The tracer is process state for the one thread that
 drives the engine.
+
+Where several processes run sessions as ranks of one group
+(``parallel/batch.py::run_slam_batch``), each rank's snapshot is brought to
+rank 0 and kept there by :func:`absorb`, tagged with its rank, so that one
+:func:`snapshot` holds the whole batch; every process reads the same
+``perf_counter`` clock, so their spans share one time line.
 """
 
 from __future__ import annotations
@@ -34,7 +40,6 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
-import os
 import time
 from dataclasses import dataclass, field
 from typing import NamedTuple
@@ -46,6 +51,7 @@ import torch.autograd.profiler as _autograd_profiler
 _LAYER_SLAM = "SLAM driver, per-frame path"
 _LAYER_MAP = "mapping step and local BA"
 _LAYER_VO = "host dispatch: VO driver, front-end, tracker"
+_LAYER_BATCH = "batch driver: sessions over ranks sharing a card"
 
 # every span the program opens, with its layer (PERF.md section 3)
 SPANS: dict[str, str] = {
@@ -65,6 +71,7 @@ SPANS: dict[str, str] = {
     "wait.chunk_scalars": _LAYER_SLAM,
     "wait.n_kf": _LAYER_SLAM,
     "wait.pgo_poses": _LAYER_SLAM,
+    "wait.pgo_step": _LAYER_SLAM,
     "wait.fuse_counts": _LAYER_SLAM,
     "wait.snapshot_dropped": _LAYER_SLAM,
     "wait.trajectory": _LAYER_SLAM,
@@ -101,6 +108,9 @@ SPANS: dict[str, str] = {
     "loop.verify": _LAYER_MAP,
     "loop.pose_graph": _LAYER_MAP,
     "map.fuse_landmarks": _LAYER_MAP,
+    # batch driver (parallel/batch.py)
+    "batch.sequence": _LAYER_BATCH,
+    "batch.gather": _LAYER_BATCH,
 }
 
 # every counter, with what it counts
@@ -115,18 +125,22 @@ COUNTERS: dict[str, str] = {
     "ba.obs_ln": "valid line observations of each local BA problem",
     "track.graph_captures": "CUDA graphs captured of the tracker's step after its Hamming launch",
     "track.graph_replays": "tracker steps run as a replay of such a graph",
+    "batch.sessions": "SLAM sessions a rank ran in a batch",
+    "batch.frames": "frames of those sessions",
 }
 
 
 class Span(NamedTuple):
     """One recorded span; ``parent`` is the index of the enclosing span in
-    the snapshot's list, or -1."""
+    the snapshot's list, or -1; ``rank`` the rank of the process that
+    recorded it (0 but for spans :func:`absorb` brought in)."""
     name: str
     kind: str            # "span" or "wait"
     start_ns: int        # time.perf_counter_ns()
     end_ns: int
     parent: int
     frame: int | None
+    rank: int = 0
 
     @property
     def ms(self) -> float:
@@ -137,7 +151,8 @@ class Span(NamedTuple):
 class Snapshot:
     """The spans and counters recorded since the last :func:`reset`:
     ``counters`` holds each counter's total, ``series`` each of its
-    :func:`count` or :func:`count_device` calls in order."""
+    :func:`count` or :func:`count_device` calls in order, over every
+    rank."""
     spans: list = field(default_factory=list)
     counters: dict = field(default_factory=dict)
     series: dict = field(default_factory=dict)
@@ -175,6 +190,7 @@ class Tracer:
         self.device: list = []      # (name, 0-d tensor, negate)
         self.last_s: dict = {}      # timed span name -> its last duration, s
         self.capture: CapturedCounts | None = None  # while a graph is captured
+        self.absorbed: list = []    # (rank, Snapshot) of other processes
 
 
 _T = Tracer()
@@ -185,6 +201,11 @@ def recording() -> bool:
     """Whether spans and counters record now: after :func:`enable`, or
     while a ``torch.profiler`` session is active."""
     return _T.on or _autograd_profiler._is_profiler_enabled
+
+
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` session is active."""
+    return _autograd_profiler._is_profiler_enabled
 
 
 def synchronizing() -> bool:
@@ -364,6 +385,37 @@ def reset() -> None:
     """Drop every recorded span, counter and frame id."""
     _T.spans, _T.open, _T.host, _T.device = [], [], {}, []
     _T.frame = None
+    _T.absorbed = []
+
+
+def absorb(snap: Snapshot, rank: int) -> None:
+    """Keep another rank's snapshot (what it recorded, as :func:`snapshot`
+    gave it there) until :func:`reset`: :func:`snapshot` adds its spans,
+    tagged with ``rank``, and its counters."""
+    _T.absorbed.append((rank, snap))
+
+
+@contextlib.contextmanager
+def recorded_as(mode: int | None, device: torch.device):
+    """Around a rank's part of a batch, recording as rank 0 does: ``mode``
+    0 not at all, 1 the tracer alone, 2 under a profiler session of this
+    process (:func:`profile_spans`, whose trace is dropped); None leaves
+    the tracer as it is. With a mode, what was recorded before is dropped
+    on entry, and what was recorded inside on exit."""
+    if not mode:
+        yield
+        return
+    reset()
+    try:
+        if mode == 1:
+            enable()
+            yield
+        else:
+            with profile_spans(device):
+                yield
+    finally:
+        disable()
+        reset()
 
 
 def mark() -> int:
@@ -403,6 +455,12 @@ def snapshot() -> Snapshot:
     for (name, _, negate), v in zip(_T.device, vals):
         v = 1.0 - v if negate else v
         series.setdefault(name, []).append(int(v) if float(v).is_integer() else v)
+    for rank, other in _T.absorbed:
+        base = len(spans)
+        spans += [s._replace(rank=rank, parent=s.parent + base if s.parent >= 0 else -1)
+                  for s in other.spans]
+        for k, v in other.series.items():
+            series.setdefault(k, []).extend(v)
     counters = {k: sum(v) for k, v in series.items()}
     return Snapshot(spans=spans, counters=counters, series=series)
 
@@ -410,11 +468,12 @@ def snapshot() -> Snapshot:
 def export_chrome(path: str, snap: Snapshot | None = None) -> Snapshot:
     """Write the recorded spans as a Chrome trace (``chrome://tracing``,
     Perfetto): one complete event per span, its kind as the category and
-    its frame id and layer as arguments. Returns the snapshot written."""
+    its frame id and layer as arguments, on one process track per rank
+    (the rank is the event's ``pid``).
+    Returns the snapshot written."""
     snap = snapshot() if snap is None else snap
     t0 = min((s.start_ns for s in snap.spans), default=0)
-    pid = os.getpid()
-    events = [{"name": s.name, "cat": s.kind, "ph": "X", "pid": pid, "tid": 0,
+    events = [{"name": s.name, "cat": s.kind, "ph": "X", "pid": s.rank, "tid": 0,
                "ts": (s.start_ns - t0) * 1e-3, "dur": (s.end_ns - s.start_ns) * 1e-3,
                "args": {"frame": s.frame, "layer": SPANS[s.name]}}
               for s in snap.spans]

@@ -257,6 +257,31 @@ def test_build_edges_exact(which):
         assert want.valid[k - 1:-4].sum() > 5   # covisibility edges selected
 
 
+def test_pose_graph_stops_once_converged(monkeypatch):
+    """On the reference's drift-closing problem the solve stops after the
+    step where the reference's loop stops: a larger step budget changes no
+    bit of the answer and queues no step more."""
+    k = 8
+    poses, valid, fg = _drift_chain(k), np.ones(k, bool), np.zeros((k, k), np.int32)
+    lc = (np.asarray([0]), np.asarray([k - 1]), np.eye(4, dtype=np.float32)[None])
+    lc[2][0, 0, 3] = 1.4
+    fixed = np.zeros(k, bool)
+    fixed[0] = True
+    e = loop_ops.build_edges(_t(poses), _t(valid), _t(fg), 100, *(_t(x) for x in lc),
+                             max_edges=16)
+    steps = []
+    keep = loop_ops._edge_terms
+    monkeypatch.setattr(loop_ops, "_edge_terms", lambda *a: (steps.append(1), keep(*a))[1])
+    got, n = {}, {}
+    for iters in (30, 200):
+        steps.clear()
+        got[iters] = loop_ops.optimize_pose_graph(_t(poses), _t(valid), e, _t(fixed),
+                                                  iters=iters).numpy()
+        n[iters] = len(steps)
+    assert 0 < n[30] == n[200] < 30
+    np.testing.assert_array_equal(got[30], got[200])
+
+
 @pytest.mark.parametrize("which", ["drift", "random"])
 def test_optimize_pose_graph(which):
     """The reference's drift-closing problem (and its gates) and a random

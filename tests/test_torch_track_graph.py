@@ -220,7 +220,8 @@ def test_track_graph_pct_is_a_benchmark_metric():
     import json
     bench = json.loads(registry.BENCHMARK.read_text())
     entry = next(m for m in bench["per_layer"] if m["name"] == "track_graph_pct.vo")
-    assert entry["moves"] == "vo_fps" and entry["workloads"] == ["euroc-vo-replay"]
+    assert entry["moves"] == "vo_fps"
+    assert entry["workloads"] == ["euroc-vo-replay", "kitti-vo-replay"]
     assert entry["layer"] == trace.SPANS["vo.track"]
 
 
