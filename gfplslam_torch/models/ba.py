@@ -11,19 +11,33 @@ iterations here, in which an ``active`` mask (not yet converged) freezes
 the state with ``torch.where`` once the reference would have stopped: the
 same result, and no host read of the convergence flag.
 
+On the card the loop runs as a CUDA graph's replays
+(``utils/cuda_graph.py::ChainedStep``). One LM iteration
+(:func:`_lm_iteration`) is captured once per process for each key of
+:func:`graph_key`, at the key's second solve (its first runs eagerly, so a
+solve made once, such as ``finish``'s global BA, pins no graph), and kept
+at module level, so every engine of the process replays it. The problem,
+its selectors and the free-keyframe mask are copied into the graph's
+buffers once per solve; the replays then chain the carry (state, blocks,
+lambda, error, counts) on the card, each writing what the next one reads,
+and the carry is copied out after the last. The prologue (selectors, the
+first blocks) and the outlier marking stay eager, as does every solve on
+CPU tensors or with another ``psum`` (the sharded solver's collectives).
+
 Pose convention: ``kf_pose`` is cam->world; the solver perturbs the inverse
 (world->cam) on the left: T_cw <- exp(dx) T_cw. Twist ordering [rho, phi].
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from gfplslam_torch.config import CameraParams
 from gfplslam_torch.models import ba_core
-from gfplslam_torch.utils import se3, trace
+from gfplslam_torch.utils import cuda_graph, se3, trace
 
 
 class BAProblem(NamedTuple):
@@ -166,6 +180,81 @@ def _no_sum(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _replayable(device: torch.device, psum) -> bool:
+    """Whether a solve's LM iterations may run as a graph's replays: on a
+    card, and with the default ``psum`` (the sharded solver's collectives
+    cannot be captured)."""
+    return device.type == "cuda" and psum is _no_sum
+
+
+# the local BA's captured LM iterations, by graph_key, and the keys solved
+# once (module state: every engine of the process replays them)
+_GRAPHS: dict = {}
+_SEEN: set = set()
+
+
+def graph_key(cam: CameraParams, lambda_k: float, tol: float, invariants: tuple,
+              carry: tuple) -> tuple:
+    """What a captured LM iteration is specific to: the device, the shape
+    and dtype of every invariant and carry leaf, and the settings the
+    iteration bakes in as constants."""
+    return (carry[0][0].device, cuda_graph.signature((invariants, carry)), cam,
+            float(lambda_k), float(tol))
+
+
+def _build_blocks(cam, prob, sel, psum, t_cw, pt_pos, ln_sp, ln_ep):
+    bk = ba_core.build_blocks(cam, prob, sel, _point_residuals,
+                              _line_residuals, t_cw, pt_pos, ln_sp, ln_ep)
+    err_sum, err_cnt = psum(torch.stack([bk.err_sum, bk.err_cnt]))
+    return bk, err_sum / torch.clamp(err_cnt, min=1.0)
+
+
+def _solve_with_lam(cam, prob, sel, kf_opt, psum, bk, t_cw, pt_pos, ln_sp,
+                    ln_ep, lam):
+    """Damped Schur solve + retraction + per-landmark acceptance."""
+    hpp_inv, hll_inv = ba_core.landmark_inverses(bk, lam)
+    s_local, rhs_local = ba_core.schur_reduce(bk, hpp_inv, hll_inv)
+    k6 = s_local.shape[0]
+    s_rhs = psum(torch.cat([s_local, rhs_local.reshape(k6, 1)], 1))
+    s_full, rhs = s_rhs[:, :k6], s_rhs[:, k6].reshape(rhs_local.shape)
+    dx_cam = ba_core.camera_solve(s_full, rhs, kf_opt, lam)
+    dx_pt, dx_ln = ba_core.back_substitute(bk, hpp_inv, hll_inv, dx_cam)
+    t_new, pt_new, sp_new, ep_new = ba_core.retract(
+        bk, t_cw, pt_pos, ln_sp, ln_ep, dx_cam, dx_pt, dx_ln)
+    pt_fin, sp_fin, ep_fin = ba_core.accept_landmarks(
+        sel, prob,
+        _point_chi2(cam, t_new, prob, pt_pos),
+        _point_chi2(cam, t_new, prob, pt_new),
+        _line_chi2(cam, t_new, prob, ln_sp, ln_ep),
+        _line_chi2(cam, t_new, prob, sp_new, ep_new),
+        pt_pos, pt_new, ln_sp, sp_new, ln_ep, ep_new)
+    return t_new, pt_fin, sp_fin, ep_fin
+
+
+def _lm_iteration(cam, lambda_k, tol, psum, invariants, carry):
+    """One LM iteration: the damped solve, the blocks at the candidate, and
+    the masked updates of the carry ``(x, bk, lam, err, iters, done)``,
+    with no host read and no host-to-device copy (what a graph captures)."""
+    prob, sel, kf_opt = invariants
+    x, bk, lam, err, iters, done = carry
+    cand = _solve_with_lam(cam, prob, sel, kf_opt, psum, bk, *x, lam)
+    bk_cand, new_err = _build_blocks(cam, prob, sel, psum, *cand)
+    active = ~done
+    improve = new_err < err
+    take = active & improve
+    # lambda schedule (:1661-1678)
+    lam = torch.where(active, torch.where(improve, lam / lambda_k,
+                                          lam * lambda_k), lam)
+    x = tuple(torch.where(take, c, o) for c, o in zip(cand, x))
+    bk = ba_core.BABlocks(*(torch.where(take, c, o)
+                            for c, o in zip(bk_cand, bk)))
+    conv = improve & (err - new_err < tol * torch.clamp(new_err, min=1e-12))
+    err = torch.where(take, new_err, err)
+    iters = iters + active.to(torch.int32)
+    done = done | conv
+    return x, bk, lam, err, iters, done
+
+
 def solve_ba(cam: CameraParams, prob: BAProblem, lambda0: float = 1e-3,
              lambda_k: float = 10.0, max_iters: int = 20,
              inlier_chi2: float = 7.815, tol: float = 1e-5, *,
@@ -187,59 +276,39 @@ def solve_ba(cam: CameraParams, prob: BAProblem, lambda0: float = 1e-3,
     t_cw0 = se3.inverse_se3(prob.kf_pose)
     if sel is None:
         sel = ba_core.make_selectors(prob)
-    kf_opt = prob.kf_free & prob.kf_valid
-
-    def build_blocks(t_cw, pt_pos, ln_sp, ln_ep):
-        bk = ba_core.build_blocks(cam, prob, sel, _point_residuals,
-                                  _line_residuals, t_cw, pt_pos, ln_sp, ln_ep)
-        err_sum, err_cnt = psum(torch.stack([bk.err_sum, bk.err_cnt]))
-        return bk, err_sum / torch.clamp(err_cnt, min=1.0)
-
-    def solve_with_lam(bk, t_cw, pt_pos, ln_sp, ln_ep, lam):
-        """Damped Schur solve + retraction + per-landmark acceptance."""
-        hpp_inv, hll_inv = ba_core.landmark_inverses(bk, lam)
-        s_local, rhs_local = ba_core.schur_reduce(bk, hpp_inv, hll_inv)
-        k6 = s_local.shape[0]
-        s_rhs = psum(torch.cat([s_local, rhs_local.reshape(k6, 1)], 1))
-        s_full, rhs = s_rhs[:, :k6], s_rhs[:, k6].reshape(rhs_local.shape)
-        dx_cam = ba_core.camera_solve(s_full, rhs, kf_opt, lam)
-        dx_pt, dx_ln = ba_core.back_substitute(bk, hpp_inv, hll_inv, dx_cam)
-        t_new, pt_new, sp_new, ep_new = ba_core.retract(
-            bk, t_cw, pt_pos, ln_sp, ln_ep, dx_cam, dx_pt, dx_ln)
-        pt_fin, sp_fin, ep_fin = ba_core.accept_landmarks(
-            sel, prob,
-            _point_chi2(cam, t_new, prob, pt_pos),
-            _point_chi2(cam, t_new, prob, pt_new),
-            _line_chi2(cam, t_new, prob, ln_sp, ln_ep),
-            _line_chi2(cam, t_new, prob, sp_new, ep_new),
-            pt_pos, pt_new, ln_sp, sp_new, ln_ep, ep_new)
-        return t_new, pt_fin, sp_fin, ep_fin
-
+    invariants = (prob, sel, prob.kf_free & prob.kf_valid)
     x = (t_cw0, prob.pt_pos, prob.ln_sp, prob.ln_ep)
-    bk, err = build_blocks(*x)
+    bk, err = _build_blocks(cam, prob, sel, psum, *x)
     lam = torch.tensor(lambda0, dtype=torch.float32, device=dev)
     iters = torch.zeros((), dtype=torch.int32, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
+    carry = (x, bk, lam, err, iters, done)
+    body = functools.partial(_lm_iteration, cam, lambda_k, tol, psum)
     trace.count("ba.iters_dispatched", max_iters)
+    # on the card a key's first solve runs eagerly, its second captures
+    # the iteration, and from then on every solve replays it
+    step = None
+    if _replayable(dev, psum):
+        key = graph_key(cam, lambda_k, tol, invariants, carry)
+        step = _GRAPHS.get(key)
+        if step is None and key in _SEEN:
+            with trace.span("ba.capture"):
+                step = _GRAPHS[key] = cuda_graph.ChainedStep(body, invariants, carry)
+            trace.count("ba.graph_captures", 1)
+        _SEEN.add(key)
+    if step is not None:
+        step.load(invariants, carry)
     for _ in range(max_iters):
         with trace.span("ba.iter"):
-            cand = solve_with_lam(bk, *x, lam)
-            bk_cand, new_err = build_blocks(*cand)
-            active = ~done
-            improve = new_err < err
-            take = active & improve
-            # lambda schedule (:1661-1678)
-            lam = torch.where(active, torch.where(improve, lam / lambda_k,
-                                                  lam * lambda_k), lam)
-            x = tuple(torch.where(take, c, o) for c, o in zip(cand, x))
-            bk = ba_core.BABlocks(*(torch.where(take, c, o)
-                                    for c, o in zip(bk_cand, bk)))
-            conv = improve & (err - new_err < tol * torch.clamp(new_err, min=1e-12))
-            err = torch.where(take, new_err, err)
-            iters = iters + active.to(torch.int32)
-            done = done | conv
+            if step is None:
+                carry = body(invariants, carry)
+            else:
+                step.replay()
+    if step is not None:
+        trace.count("ba.graph_replays", max_iters)
+        carry = step.result()
+    (t_cw, pt_pos, ln_sp, ln_ep), _, _, err, iters, _ = carry
     trace.count_device("ba.iters_active", iters)
-    t_cw, pt_pos, ln_sp, ln_ep = x
 
     # post-BA outlier marking by chi2 (:1714-1836)
     rp, _, _, _ = _point_residuals(cam, t_cw, prob, pt_pos)

@@ -18,6 +18,13 @@ returned twice, as the eager call returns one tensor twice.
 Counts the function makes through ``utils/trace.py`` are kept at the capture
 and made again at every replay (``trace.recount``), the device ones from a
 copy of their tensors stacked inside the graph.
+
+:class:`ChainedStep` captures one step of a loop, ``fn(invariants, carry)
+-> carry``: the graph ends by writing the carry it computed back into its
+own static carry, so replay i + 1 reads what replay i wrote and n replays
+run n steps with nothing on the host between them but the launches. The
+invariants are copied in once per loop and the carry copied out after the
+last replay.
 """
 
 from __future__ import annotations
@@ -121,3 +128,51 @@ class CapturedStep:
         res = clone_all(self.out)
         trace.recount(self.counts, res[-1] if self.counts.device else None)
         return rebuild(self.out_tree, iter(res))
+
+
+class ChainedStep:
+    """``fn(invariants, carry) -> carry`` captured on the shapes of its
+    arguments, each replay one step of a loop whose carry stays in the
+    graph's static buffers. Construction runs one step eagerly on a side
+    stream (the warm-up) and captures the next. A loop then calls
+    :meth:`load` with its arguments, :meth:`replay` once per step and
+    :meth:`result` for the carry. ``fn`` makes no count through
+    ``utils/trace.py``."""
+
+    def __init__(self, fn: Callable, invariants: tuple, carry: tuple):
+        device = leaves(carry)[0].device
+        with torch.cuda.device(device):
+            self.invariants = [torch.empty_like(t) for t in leaves(invariants)]
+            self.carry = [torch.empty_like(t) for t in leaves(carry)]
+            self.tree = rebuild(carry, iter(self.carry))
+            self.load(invariants, carry)
+            args = (rebuild(invariants, iter(self.invariants)), self.tree)
+            side, main = _side_stream(device), torch.cuda.current_stream(device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                self._write_back(fn(*args))
+            main.wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                self._write_back(fn(*args))
+
+    def _write_back(self, out) -> None:
+        """The step's carry into the static carry; a result that is a
+        static buffer itself is copied first, so no copy reads what
+        another has overwritten."""
+        mine = {t.untyped_storage().data_ptr() for t in self.carry}
+        copy_all(self.carry, [t.clone() if t.untyped_storage().data_ptr() in mine
+                              else t for t in leaves(out)])
+
+    def load(self, invariants: tuple, carry: tuple) -> None:
+        """Copy a new loop's invariants and first carry in."""
+        copy_all(self.invariants + self.carry, leaves(invariants) + leaves(carry))
+
+    def replay(self) -> None:
+        """One step, on the current stream."""
+        self.graph.replay()
+
+    def result(self):
+        """A copy of the carry, shaped as the carry given at construction."""
+        return rebuild(self.tree, iter(clone_all(self.carry)))

@@ -101,6 +101,7 @@ SPANS: dict[str, str] = {
     "map.ba_problem": _LAYER_MAP,
     "ba.solve": _LAYER_MAP,
     "ba.iter": _LAYER_MAP,
+    "ba.capture": _LAYER_MAP,
     "map.apply_ba": _LAYER_MAP,
     "map.cull": _LAYER_MAP,
     "loop.insert_bow": _LAYER_MAP,
@@ -125,6 +126,8 @@ COUNTERS: dict[str, str] = {
     "ba.obs_ln": "valid line observations of each local BA problem",
     "track.graph_captures": "CUDA graphs captured of the tracker's step after its Hamming launch",
     "track.graph_replays": "tracker steps run as a replay of such a graph",
+    "ba.graph_captures": "CUDA graphs captured of the local BA's LM iteration",
+    "ba.graph_replays": "LM iterations run as a replay of such a graph",
     "batch.sessions": "SLAM sessions a rank ran in a batch",
     "batch.frames": "frames of those sessions",
 }
