@@ -978,13 +978,10 @@ def phase_timed_vo(dev, name, records, n_kitti: int = 20):
     from gfplslam_torch.utils.timing import FIELDS
 
     times = [f for f in FIELDS if f.startswith("time")]
-    # stages inside the tracker's graph: a replay times them as one span
-    in_graph = ("time_ln_cut", "time_ln_cross")
 
     def stage_ms(timed):
         rows = timed.timelog.rows[1:]
-        if not all(getattr(r, f) > 0 for r in rows for f in times
-                   if f not in in_graph):
+        if not all(getattr(r, f) > 0 for r in rows for f in times):
             _fail("a time_* field of a tracked frame is not > 0")
         # time_track is the frame's total: the sum of the other nine
         return {f: round(1e3 * statistics.median(getattr(r, f) for r in rows), 4)

@@ -11,18 +11,8 @@ iterations here, in which an ``active`` mask (not yet converged) freezes
 the state with ``torch.where`` once the reference would have stopped: the
 same result, and no host read of the convergence flag.
 
-On the card the loop runs as a CUDA graph's replays
-(``utils/cuda_graph.py::ChainedStep``). One LM iteration
-(:func:`_lm_iteration`) is captured once per process for each key of
-:func:`graph_key`, at the key's second solve (its first runs eagerly, so a
-solve made once, such as ``finish``'s global BA, pins no graph), and kept
-at module level, so every engine of the process replays it. The problem,
-its selectors and the free-keyframe mask are copied into the graph's
-buffers once per solve; the replays then chain the carry (state, blocks,
-lambda, error, counts) on the card, each writing what the next one reads,
-and the carry is copied out after the last. The prologue (selectors, the
-first blocks) and the outlier marking stay eager, as does every solve on
-CPU tensors or with another ``psum`` (the sharded solver's collectives).
+The LM iterations (:func:`_lm_iteration`) run eagerly, or as a CUDA graph's
+capture and replays, as ``utils/cuda_graph.py`` decides.
 
 Pose convention: ``kf_pose`` is cam->world; the solver perturbs the inverse
 (world->cam) on the left: T_cw <- exp(dx) T_cw. Twist ordering [rho, phi].
@@ -180,28 +170,6 @@ def _no_sum(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _replayable(device: torch.device, psum) -> bool:
-    """Whether a solve's LM iterations may run as a graph's replays: on a
-    card, and with the default ``psum`` (the sharded solver's collectives
-    cannot be captured)."""
-    return device.type == "cuda" and psum is _no_sum
-
-
-# the local BA's captured LM iterations, by graph_key, and the keys solved
-# once (module state: every engine of the process replays them)
-_GRAPHS: dict = {}
-_SEEN: set = set()
-
-
-def graph_key(cam: CameraParams, lambda_k: float, tol: float, invariants: tuple,
-              carry: tuple) -> tuple:
-    """What a captured LM iteration is specific to: the device, the shape
-    and dtype of every invariant and carry leaf, and the settings the
-    iteration bakes in as constants."""
-    return (carry[0][0].device, cuda_graph.signature((invariants, carry)), cam,
-            float(lambda_k), float(tol))
-
-
 def _build_blocks(cam, prob, sel, psum, t_cw, pt_pos, ln_sp, ln_ep):
     bk = ba_core.build_blocks(cam, prob, sel, _point_residuals,
                               _line_residuals, t_cw, pt_pos, ln_sp, ln_ep)
@@ -283,30 +251,11 @@ def solve_ba(cam: CameraParams, prob: BAProblem, lambda0: float = 1e-3,
     iters = torch.zeros((), dtype=torch.int32, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     carry = (x, bk, lam, err, iters, done)
-    body = functools.partial(_lm_iteration, cam, lambda_k, tol, psum)
     trace.count("ba.iters_dispatched", max_iters)
-    # on the card a key's first solve runs eagerly, its second captures
-    # the iteration, and from then on every solve replays it
-    step = None
-    if _replayable(dev, psum):
-        key = graph_key(cam, lambda_k, tol, invariants, carry)
-        step = _GRAPHS.get(key)
-        if step is None and key in _SEEN:
-            with trace.span("ba.capture"):
-                step = _GRAPHS[key] = cuda_graph.ChainedStep(body, invariants, carry)
-            trace.count("ba.graph_captures", 1)
-        _SEEN.add(key)
-    if step is not None:
-        step.load(invariants, carry)
-    for _ in range(max_iters):
-        with trace.span("ba.iter"):
-            if step is None:
-                carry = body(invariants, carry)
-            else:
-                step.replay()
-    if step is not None:
-        trace.count("ba.graph_replays", max_iters)
-        carry = step.result()
+    carry = cuda_graph.loop(
+        "ba", functools.partial(_lm_iteration, cam, lambda_k, tol, psum),
+        invariants, carry, max_iters,
+        settings=(cam, float(lambda_k), float(tol)), capturable=psum is _no_sum)
     (t_cw, pt_pos, ln_sp, ln_ep), _, _, err, iters, _ = carry
     trace.count_device("ba.iters_active", iters)
 

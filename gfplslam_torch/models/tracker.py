@@ -7,13 +7,9 @@ keyframe decision, adaptive FAST threshold and track-loss counting. The
 tracker state is a NamedTuple of device tensors; one ``track_step`` reads
 the previous state and frames and returns the new state with no host read.
 
-On CUDA tensors everything after the cross-frame Hamming launch
-(:func:`track_body`: matching, line cut, pose solve, state update) runs as
-the replay of a CUDA graph, captured once per process for each key of
-:func:`graph_key` and kept at module level, so engines that follow each
-other share it; the Hamming launch stays eager, counted per call. On CPU
-tensors the same body runs eagerly, as it does on the card under the
-min-eigenvalue line cut, whose solver a capture refuses.
+Everything after the cross-frame Hamming launch (:func:`track_body`) runs
+eagerly, or as a CUDA graph's capture or replay, as ``utils/cuda_graph.py``
+decides.
 
 Pose convention: ``t_cam_w`` maps camera->world, ``dt_store`` =
 T_prev<-curr, the optimizer works on T_curr<-prev
@@ -221,27 +217,17 @@ def track_step(cfg: Config, state: TrackerState, prev: StereoFrame,
     """One tracking iteration: predict, match, cut, optimize, decide KF
     (insertStereoPair -> optimizePose -> needNewKF,
     stereoFrameHandler.cpp:83-151, 1939-2030, 2309-2349). The Hamming
-    launch runs eagerly; the rest as a graph's replay on CUDA tensors
-    (:func:`track_body` eagerly on CPU ones)."""
+    launch runs eagerly; :func:`track_body` as ``utils/cuda_graph.py``
+    decides."""
     with trace.timed("vo.track"):
         d_pt, d_ln = cross_hamming(prev, curr)
-        if not curr.points.xy.is_cuda or _refuses_capture(cfg):
-            return track_body(cfg, state, prev, curr, delta_t, d_pt, d_ln)
         delta_t = torch.as_tensor(delta_t, dtype=torch.float32,
                                   device=curr.points.xy.device)
-        args = (state, prev, curr, delta_t, d_pt, d_ln)
-        key = graph_key(cfg, *args)
-        step = _GRAPHS.get(key)
-        if step is None:
-            with trace.span("track.capture"):
-                step = _GRAPHS[key] = cuda_graph.CapturedStep(
-                    functools.partial(track_body, cfg), args)
-            trace.count("track.graph_captures", 1)
-            return step.first
-        with trace.span("track.replay"):
-            out = step(args)
-        trace.count("track.graph_replays", 1)
-        return out
+        return cuda_graph.step(
+            "track", functools.partial(track_body, cfg),
+            (state, prev, curr, delta_t, d_pt, d_ln),
+            settings=(cfg.stvo, cfg.tracking, cfg.optimizer, cfg.camera, cfg.slam),
+            capturable=not _refuses_capture(cfg))
 
 
 def track_body(cfg: Config, state: TrackerState, prev: StereoFrame,
@@ -269,23 +255,6 @@ def _refuses_capture(cfg: Config) -> bool:
     batched Jacobi solver invalidates the capture)."""
     return (cfg.stvo.use_line_conf_cut and cfg.stvo.has_lines
             and not cfg.stvo.max_vol_line_cut)
-
-
-# the tracker's captured steps, by graph_key (module state: every engine
-# of the process replays them)
-_GRAPHS: dict = {}
-
-
-def graph_key(cfg: Config, state: TrackerState, prev: StereoFrame,
-              curr: StereoFrame, delta_t: torch.Tensor, d_pt: torch.Tensor,
-              d_ln: torch.Tensor) -> tuple:
-    """What a captured :func:`track_body` is specific to: the device, every
-    input leaf's shape and dtype, and the settings the body reads (captured
-    as constants: the line-cut switches, the solver's iteration counts and
-    thresholds, the camera, the keyframe rules)."""
-    return (curr.points.xy.device,
-            cuda_graph.signature((state, prev, curr, delta_t, d_pt, d_ln)),
-            cfg.stvo, cfg.tracking, cfg.optimizer, cfg.camera, cfg.slam)
 
 
 def finalize_track(cfg: Config, state: TrackerState, matches: CrossMatches,

@@ -7,11 +7,8 @@ frame with no host read, so by default ``VisualOdometry`` fills only
 ``time_pt_extract`` and ``time_pose_optim``, with the host time of the
 ``vo.frontend`` and ``vo.track`` spans; when the tracer synchronises every
 span (``utils/trace.py``, ``run_slam --timing``) each stage field is the sum
-of the stage spans :data:`STAGE_SPANS` names for it. On the card the
-tracker's step after its Hamming launch is one graph replay
-(``track.replay``, in ``time_pose_optim``), so there ``time_ln_cut`` and
-``time_ln_cross`` read 0 and ``time_pt_cross`` holds the Hamming launch
-alone; on the CPU every stage has its own span.
+of the stage spans :data:`STAGE_SPANS` names for it (in that mode no step
+runs as a CUDA graph's replay, so every stage has its own span).
 """
 
 from __future__ import annotations
@@ -38,7 +35,7 @@ STAGE_SPANS = {
     "time_pt_cross": ("track.cross_hamming", "track.cross_points"),
     "time_ln_cross": ("track.cross_lines",),
     "time_ln_cut": ("track.linecut",),
-    "time_pose_optim": ("track.pose_opt", "track.finalize", "track.replay"),
+    "time_pose_optim": ("track.pose_opt", "track.finalize"),
 }
 
 

@@ -162,14 +162,19 @@ def test_every_span_is_a_profiler_annotation_of_the_same_length(frames):
 
 def test_every_span_name_in_the_source_is_declared_and_used():
     pattern = re.compile(r'trace\.(?:span|wait|timed|spanned)\(\s*"([^"]+)"')
-    used = set()
+    # a step handed to utils/cuda_graph.py under a name opens and counts
+    # the names its policy derives from it
+    graphed = re.compile(r'cuda_graph\.(step|loop)\(\s*"([^"]+)"')
+    used, counted = set(), set()
     for path in PACKAGE.rglob("*.py"):
-        used |= set(pattern.findall(path.read_text()))
+        text = path.read_text()
+        used |= set(pattern.findall(text))
+        counted |= set(re.findall(r'trace\.count(?:_device)?\(\s*"([^"]+)"', text))
+        for kind, name in graphed.findall(text):
+            each = "replay" if kind == "step" else "iter"
+            used |= {f"{name}.capture", f"{name}.{each}"}
+            counted |= {f"{name}.graph_captures", f"{name}.graph_replays"}
     assert used == set(trace.SPANS)
-    counted = set()
-    for path in PACKAGE.rglob("*.py"):
-        counted |= set(re.findall(r'trace\.count(?:_device)?\(\s*"([^"]+)"',
-                                  path.read_text()))
     assert counted == set(trace.COUNTERS)
 
 

@@ -1,8 +1,8 @@
 """The tracker's step as a CUDA graph (``models/tracker.py``,
-``utils/cuda_graph.py``): what the graph is keyed on, the eager path that
-CPU inputs take, the tracer's counts of captures and replays, and the
-benchmark's reader of them; on a card, that replays give what the eager
-body gives, bit for bit.
+``utils/cuda_graph.py``, whose policy ``tests/test_torch_cuda_graph.py``
+tests): the tracer's counts made inside a capture, and the benchmark's
+reader of the replays; on a card, that replays give what the eager body
+gives, bit for bit.
 
 The tests marked ``gpu`` skip without a card. On a machine with a card and
 without JAX, run them with
@@ -17,44 +17,28 @@ import numpy as np
 import pytest
 import torch
 
-from gfplslam_torch.config import KITTI_00_CAMERA, CameraParams, Config, load_config
+from gfplslam_torch.config import KITTI_00_CAMERA, CameraParams, Config
 from gfplslam_torch.io import synthetic
 from gfplslam_torch.models import tracker, vo
-from gfplslam_torch.models.frame import process_stereo_pair
 from gfplslam_torch.utils import cuda_graph, trace
-from gfplslam_torch.utils.timing import STAGE_SPANS
 from slam_bench import program_trace, registry
-
-CPU = torch.device("cpu")
-CAM = dict(width=376, height=240, fx=217.6, fy=217.6, cx=183.7, cy=126.1,
-           baseline=0.11)
-SMALL = load_config({"cap": {"n_pt": 256, "n_ln": 128}, "orb": {"nlevels": 2}}
-                    ).replace(camera=CameraParams(**CAM))
-SMALL_PT = SMALL.replace(cap=dataclasses.replace(SMALL.cap, n_pt=128))
 
 
 @pytest.fixture(autouse=True)
-def clean_tracer():
+def clean_state():
+    """An empty tracer, and no graph or seen key left by another test."""
+    saved = dict(cuda_graph._GRAPHS), set(cuda_graph._SEEN)
+    cuda_graph._GRAPHS.clear()
+    cuda_graph._SEEN.clear()
     trace.disable()
     trace.reset()
     yield
     trace.disable()
     trace.reset()
-
-
-def _frames(cfg, n=3, seed=5):
-    world = synthetic.make_world(n_frames=n, n_points=300, n_lines=40, seed=seed)
-    out = []
-    for i in range(n):
-        l, r = synthetic.render_frame(world, i, noise=1.0)
-        out.append(process_stereo_pair(torch.as_tensor(l), torch.as_tensor(r), cfg,
-                                       torch.tensor(10.0)))
-    return out
-
-
-@pytest.fixture(scope="module")
-def frames():
-    return {"small": _frames(SMALL), "small_pt": _frames(SMALL_PT, n=2)}
+    cuda_graph._GRAPHS.clear()
+    cuda_graph._GRAPHS.update(saved[0])
+    cuda_graph._SEEN.clear()
+    cuda_graph._SEEN.update(saved[1])
 
 
 def _equal(a, b):
@@ -62,84 +46,7 @@ def _equal(a, b):
     torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
 
 
-def _args(cfg, f, state=None, delta_t=0.05, pair=(0, 1)):
-    prev, curr = f[pair[0]], f[pair[1]]
-    d_pt, d_ln = tracker.cross_hamming(prev, curr)
-    state = tracker.initial_state(cfg, CPU) if state is None else state
-    return (state, prev, curr, torch.tensor(delta_t), d_pt, d_ln)
-
-
 # ---------------------------------------------------------------- CPU tests
-
-@pytest.mark.parametrize("change", ["state values", "frame values", "delta_t value"])
-def test_graph_key_holds_when_only_values_change(frames, change):
-    f = frames["small"]
-    base = tracker.graph_key(SMALL, *_args(SMALL, f))
-    if change == "state values":
-        st = tracker.initial_state(SMALL, CPU)
-        st = st._replace(t_cam_w=st.t_cam_w * 2, fast_th=st.fast_th + 5)
-        other = _args(SMALL, f, state=st)
-    elif change == "frame values":
-        other = _args(SMALL, f, pair=(1, 2))
-    else:
-        other = _args(SMALL, f, delta_t=0.1)
-    assert tracker.graph_key(SMALL, *other) == base
-
-
-@pytest.mark.parametrize("change", ["point capacity", "use_line_conf_cut",
-                                    "max_vol_line_cut", "optimizer iterations",
-                                    "camera"])
-def test_graph_key_changes_with_shapes_and_settings(frames, change):
-    base = tracker.graph_key(SMALL, *_args(SMALL, frames["small"]))
-    cfg, f = SMALL, frames["small"]
-    if change == "point capacity":
-        cfg, f = SMALL_PT, frames["small_pt"]
-    elif change == "use_line_conf_cut":
-        cfg = SMALL.replace(stvo=dataclasses.replace(SMALL.stvo, use_line_conf_cut=False))
-    elif change == "max_vol_line_cut":
-        cfg = SMALL.replace(stvo=dataclasses.replace(SMALL.stvo, max_vol_line_cut=False))
-    elif change == "optimizer iterations":
-        cfg = SMALL.replace(optimizer=dataclasses.replace(SMALL.optimizer, max_iters=6))
-    else:
-        cfg = SMALL.replace(camera=dataclasses.replace(SMALL.camera, fx=218.0))
-    assert tracker.graph_key(cfg, *_args(cfg, f)) != base
-
-
-def test_cpu_inputs_take_the_eager_path_and_create_no_graph(frames, monkeypatch):
-    def no_graph(*a, **k):
-        raise AssertionError("a CPU input reached the graph path")
-    monkeypatch.setattr(cuda_graph, "CapturedStep", no_graph)
-    before = dict(tracker._GRAPHS)
-    f = frames["small"]
-    st = tracker.initial_state(SMALL, CPU)
-    trace.enable()
-    got = tracker.track_step(SMALL, st, f[0], f[1], torch.tensor(0.05))
-    snap = trace.snapshot()
-    assert tracker._GRAPHS == before
-    assert "track.graph_captures" not in snap.counters
-    assert "track.graph_replays" not in snap.counters
-    names = {s.name for s in snap.spans}
-    assert {"track.cross_points", "track.linecut", "track.pose_opt"} <= names
-    assert not names & {"track.capture", "track.replay"}
-    want = tracker.track_body(SMALL, st, *_args(SMALL, f)[1:])
-    for g, w in zip(cuda_graph.leaves(got), cuda_graph.leaves(want)):
-        _equal(g, w)
-
-
-@pytest.mark.parametrize("name", ["track.capture", "track.replay"])
-def test_new_spans_are_declared_in_the_tracker_layer(name):
-    assert trace.SPANS[name] == trace.SPANS["vo.track"]
-
-
-@pytest.mark.parametrize("name", ["track.graph_captures", "track.graph_replays"])
-def test_new_counters_are_declared(name):
-    assert trace.COUNTERS[name]
-
-
-def test_replay_span_times_the_pose_stage():
-    assert "track.replay" in STAGE_SPANS["time_pose_optim"]
-    assert sum(n == "track.replay" for ns in STAGE_SPANS.values() for n in ns) == 1
-
 
 @pytest.mark.parametrize("recording", [True, False])
 def test_counts_made_during_a_capture_are_kept_and_made_again(recording):
@@ -158,30 +65,6 @@ def test_counts_made_during_a_capture_are_kept_and_made_again(recording):
     want = ({"pose_opt.iters_dispatched": 10, "pose_opt.iters_active": 1}
             if recording else {})
     assert trace.snapshot().counters == want
-
-
-def test_tree_helpers_rebuild_what_they_flatten(frames):
-    args = _args(SMALL, frames["small"])
-    flat = cuda_graph.leaves(args)
-    assert len(flat) > 60 and all(isinstance(t, torch.Tensor) for t in flat)
-    back = cuda_graph.rebuild(args, iter(flat))
-    assert cuda_graph.signature(back) == cuda_graph.signature(args)
-    assert type(back[1]) is type(args[1]) and type(back[1].points) is type(args[1].points)
-    assert all(a is b for a, b in zip(cuda_graph.leaves(back), flat))
-
-
-def test_copies_group_by_dtype_and_a_repeated_tensor_is_copied_once():
-    a = torch.arange(6, dtype=torch.float32).reshape(2, 3)
-    b = torch.tensor([True, False])
-    c = torch.arange(4, dtype=torch.int64)
-    dst = [torch.empty_like(a), torch.empty_like(b), torch.empty_like(c)]
-    cuda_graph.copy_all(dst, [a, b, c])
-    assert all(torch.equal(d, s) for d, s in zip(dst, [a, b, c]))
-    out = cuda_graph.clone_all([a, b, a, c])
-    assert out[0] is out[2] and out[0] is not a
-    assert all(torch.equal(o, s) for o, s in zip(out, [a, b, a, c]))
-    a += 1
-    assert torch.equal(out[0], torch.arange(6, dtype=torch.float32).reshape(2, 3))
 
 
 def _span(name, t0, t1):
@@ -274,7 +157,8 @@ def _scan(world, dev):
 @pytest.mark.gpu
 def test_vo_scan_replays_equal_the_eager_body_bit_for_bit(dev, euroc_world, monkeypatch):
     poses_g, aux_g, snap_g = _scan(euroc_world, dev)
-    assert snap_g.counters["track.graph_replays"] >= len(euroc_world[0]) - 2
+    # of the tracked frames, the first runs eagerly and the second captures
+    assert snap_g.counters["track.graph_replays"] == len(euroc_world[0]) - 3
     with monkeypatch.context() as m:
         m.setattr(tracker, "track_step", _eager_step)
         poses_e, aux_e, snap_e = _scan(euroc_world, dev)
@@ -331,27 +215,27 @@ def test_live_frames_on_kitti_equal_the_eager_body(dev, kitti_world, monkeypatch
 
 @pytest.mark.gpu
 def test_fresh_engines_reuse_one_graph_per_key(dev, euroc_world, kitti_world):
-    tracker._GRAPHS.clear()
     trace.enable()
     for _ in range(2):
         vo.run_vo_scan(EUROC, *euroc_world, device=dev)
     c = trace.snapshot().counters
     n = len(euroc_world[0]) - 1
+    # a key's first step runs eagerly, its second captures, the rest replay
     assert c["track.graph_captures"] == 1
-    assert c["track.graph_replays"] == 2 * n - 1
+    assert c["track.graph_replays"] == 2 * n - 2
     for _ in range(2):
         engine = vo.VisualOdometry(KITTI, device=dev)
         for l, r, t in zip(*kitti_world):
             engine.process(l, r, float(t))
     c = trace.snapshot().counters
     assert c["track.graph_captures"] == 2
-    assert c["track.graph_replays"] == 2 * n - 1 + 2 * (len(kitti_world[0]) - 1) - 1
-    assert len(tracker._GRAPHS) == 2
-    (k_euroc, k_kitti) = tracker._GRAPHS
+    assert c["track.graph_replays"] == 2 * n - 2 + 2 * (len(kitti_world[0]) - 1) - 2
+    assert len(cuda_graph._GRAPHS) == 2
+    (k_euroc, k_kitti) = cuda_graph._GRAPHS
     # both rigs run the default capacities: the same shapes, keyed apart
     # by the camera the body reads
-    assert k_euroc[0] == k_kitti[0] == dev and k_euroc[1] == k_kitti[1]
-    assert EUROC.camera in k_euroc and KITTI.camera in k_kitti
+    assert k_euroc[:2] == k_kitti[:2] == ("track", dev) and k_euroc[2] == k_kitti[2]
+    assert EUROC.camera in k_euroc[3] and KITTI.camera in k_kitti[3]
 
 
 @pytest.mark.gpu
