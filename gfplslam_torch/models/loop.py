@@ -18,6 +18,7 @@ GN on [6K] twists whose edge Jacobians come from forward-mode AD
 
 from __future__ import annotations
 
+import functools
 import glob
 import math
 import os
@@ -33,7 +34,7 @@ from gfplslam_torch.models.frame import StereoFrame
 from gfplslam_torch.models.map import set_rows
 from gfplslam_torch.ops import matching as match_ops
 from gfplslam_torch.ops.hamming import hamming_matrix
-from gfplslam_torch.utils import se3, trace
+from gfplslam_torch.utils import cuda_graph, se3, trace
 
 CUDA = torch.device("cuda")
 DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -374,42 +375,86 @@ class LoopVerification(NamedTuple):
     err: torch.Tensor
 
 
+class Snapshot(NamedTuple):
+    """One keyframe's feature snapshot: its rows of the snapshot fields of
+    :class:`LoopState`, under the same names."""
+    pt_p3d: torch.Tensor     # [N_KF_PT, 3]
+    pt_uv: torch.Tensor      # [N_KF_PT, 2]
+    pt_desc: torch.Tensor    # [N_KF_PT, 8] int32
+    pt_sigma2: torch.Tensor  # [N_KF_PT]
+    pt_valid: torch.Tensor   # [N_KF_PT] bool
+    ln_sp3d: torch.Tensor    # [N_KF_LN, 3]
+    ln_ep3d: torch.Tensor    # [N_KF_LN, 3]
+    ln_le: torch.Tensor      # [N_KF_LN, 3]
+    ln_desc: torch.Tensor    # [N_KF_LN, 8] int32
+    ln_sigma2: torch.Tensor  # [N_KF_LN]
+    ln_valid: torch.Tensor   # [N_KF_LN] bool
+
+
+def snapshot_row(ls: LoopState, kf: torch.Tensor) -> Snapshot:
+    """KF ``kf``'s snapshot, gathered on the device by the index tensor
+    ``kf`` (``x[kf]`` with a 0-d tensor reads the index on the host)."""
+    i = kf.reshape(1)
+    return Snapshot(*(getattr(ls, f).index_select(0, i)[0] for f in Snapshot._fields))
+
+
 def verify_loop(cfg: Config, ls: LoopState, kf_prev: torch.Tensor,
                 kf_curr: torch.Tensor) -> LoopVerification:
     """KF<->KF mutual-best matching + robust GN from identity + acceptance
     gates (isLoopClosure/computeRelativePoseGN, :3078-3545): residual <
     lc_res, cov eig < lc_unc, inlier ratio > lc_inl, |t| < lc_trs,
-    rot < lc_rot degrees."""
-    s = cfg.slam
-    kp = torch.as_tensor(kf_prev, device=ls.conf.device).long()
-    kc = torch.as_tensor(kf_curr, device=ls.conf.device).long()
-    mp = match_ops.mutual_best(hamming_matrix(
-        ls.pt_desc[kp], ls.pt_desc[kc], ls.pt_valid[kp], ls.pt_valid[kc]))
-    pts = pose_opt.PointMatches(
-        p3d=ls.pt_p3d[kp], obs=ls.pt_uv[kc][mp.idx],
-        sigma2=ls.pt_sigma2[kp], valid=mp.valid)
-    ml = match_ops.mutual_best(hamming_matrix(
-        ls.ln_desc[kp], ls.ln_desc[kc], ls.ln_valid[kp], ls.ln_valid[kc]))
-    lns = pose_opt.LineMatches(
-        sp3d=ls.ln_sp3d[kp], ep3d=ls.ln_ep3d[kp], le_obs=ls.ln_le[kc][ml.idx],
-        sigma2=ls.ln_sigma2[kp], valid=ml.valid)
+    rot < lc_rot degrees.
 
-    eye = torch.eye(4, device=ls.conf.device)
-    res = pose_opt.optimize_pose(cfg.camera, eye, pts, lns, cfg.optimizer,
-                                 delta_t=1e9)
-    n_match = mp.valid.sum() + ml.valid.sum()
-    n_inl = res.pt_inlier.sum() + res.ln_inlier.sum()
+    The two snapshots are gathered and their two Hamming matrices formed
+    eagerly, one kernel launch each; :func:`verify_body` runs eagerly, or
+    as a CUDA graph's capture or replay, as ``utils/cuda_graph.py``
+    decides; the gates run eagerly. On the card the gates read the host
+    twice, each waiting for the work queued before it:
+    ``se3.logmap_se3``'s ``torch.linalg.solve`` and
+    ``torch.linalg.eigvalsh``."""
+    s = cfg.slam
+    dev = ls.conf.device
+    prev = snapshot_row(ls, torch.as_tensor(kf_prev, device=dev).long())
+    curr = snapshot_row(ls, torch.as_tensor(kf_curr, device=dev).long())
+    d_pt = hamming_matrix(prev.pt_desc, curr.pt_desc, prev.pt_valid, curr.pt_valid)
+    d_ln = hamming_matrix(prev.ln_desc, curr.ln_desc, prev.ln_valid, curr.ln_valid)
+    res, n_match, n_inl = cuda_graph.step(
+        "verify", functools.partial(verify_body, cfg), (prev, curr, d_pt, d_ln),
+        settings=(cfg.camera, cfg.optimizer))
     inl_ratio = n_inl / torch.clamp(n_match, min=1)
     tw = se3.logmap_se3(res.dt)
     trans = torch.sqrt((tw[:3] * tw[:3]).sum())
     rot_deg = torch.sqrt((tw[3:] * tw[3:]).sum()) * 180.0 / math.pi
     max_cov_eig = torch.linalg.eigvalsh(
-        res.dt_cov + 1e-12 * torch.eye(6, device=eye.device)).max()
+        res.dt_cov + 1e-12 * torch.eye(6, device=dev)).max()
     accepted = (res.accepted & (res.err < s.lc_res) & (res.err >= 0)
                 & (max_cov_eig < s.lc_unc) & (inl_ratio > s.lc_inl)
                 & (trans < s.lc_trs) & (rot_deg < s.lc_rot))
     return LoopVerification(accepted=accepted, t_rel=res.dt,
                             n_inliers=n_inl.to(torch.int32), err=res.err)
+
+
+def verify_body(cfg: Config, prev: Snapshot, curr: Snapshot, d_pt: torch.Tensor,
+                d_ln: torch.Tensor):
+    """:func:`verify_loop` between its Hamming launches, whose two matrices
+    it takes, and its gates: mutual-best matching, the two-stage pose solve
+    from identity, and the match and inlier counts, with no host read and
+    no host-to-device copy (what a graph captures). Returns (PoseResult,
+    n_match, n_inl)."""
+    dev = d_pt.device
+    mp = match_ops.mutual_best(d_pt)
+    pts = pose_opt.PointMatches(
+        p3d=prev.pt_p3d, obs=curr.pt_uv[mp.idx], sigma2=prev.pt_sigma2,
+        valid=mp.valid)
+    ml = match_ops.mutual_best(d_ln)
+    lns = pose_opt.LineMatches(
+        sp3d=prev.ln_sp3d, ep3d=prev.ln_ep3d, le_obs=curr.ln_le[ml.idx],
+        sigma2=prev.ln_sigma2, valid=ml.valid)
+    res = pose_opt.optimize_pose(cfg.camera, torch.eye(4, device=dev), pts, lns,
+                                 cfg.optimizer, delta_t=torch.full((), 1e9, device=dev))
+    n_match = mp.valid.sum() + ml.valid.sum()
+    n_inl = res.pt_inlier.sum() + res.ln_inlier.sum()
+    return res, n_match, n_inl
 
 
 # ---------------------------------------------------------------------------

@@ -3,10 +3,19 @@
 Port of ``gfplslam_tpu/models/mapping.py``: the stages of
 ``MapHandler::addKeyFrame`` (mapHandler.cpp:113-187) in the reference's
 order — data association, local BA, landmark culling, BoW insertion, and
-(with loop closure on) loop-candidate scoring + verification. The whole
-step is queued on the device with no host read. ``verify_loop`` runs
-speculatively on the clamped candidate (cand < 0 means "no candidate"; the
-host ignores the verification then), as in the reference.
+(with loop closure on) loop-candidate scoring + verification.
+``verify_loop`` runs speculatively on the clamped candidate (cand < 0 means
+"no candidate"; the host ignores the verification then), as in the
+reference.
+
+The step is queued on the device but for these host reads, each of which
+waits for the work queued before it: a row picked by a 0-d device index
+(``x[k]`` reads ``k``) in ``map.add_keyframe`` (the previous keyframe's pose
+and, as in ``build_local_ba_problem``, ``map.local_kf_mask``'s covisibility
+rows) and in ``loop.look_for_loop_candidates`` (the keyframe's score row
+and covisibility rows, the best candidate's score); and ``verify_loop``'s
+gates (``se3.logmap_se3``'s ``torch.linalg.solve`` and
+``torch.linalg.eigvalsh``).
 """
 
 from __future__ import annotations

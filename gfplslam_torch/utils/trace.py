@@ -107,6 +107,8 @@ SPANS: dict[str, str] = {
     "loop.insert_bow": _LAYER_MAP,
     "loop.candidates": _LAYER_MAP,
     "loop.verify": _LAYER_MAP,
+    "verify.capture": _LAYER_MAP,
+    "verify.replay": _LAYER_MAP,
     "loop.pose_graph": _LAYER_MAP,
     "map.fuse_landmarks": _LAYER_MAP,
     # batch driver (parallel/batch.py)
@@ -128,6 +130,8 @@ COUNTERS: dict[str, str] = {
     "track.graph_replays": "tracker steps run as a replay of such a graph",
     "ba.graph_captures": "CUDA graphs captured of the local BA's LM iteration",
     "ba.graph_replays": "LM iterations run as a replay of such a graph",
+    "verify.graph_captures": "CUDA graphs captured of loop verification's matching and pose solve",
+    "verify.graph_replays": "loop verifications run as a replay of such a graph",
     "batch.sessions": "SLAM sessions a rank ran in a batch",
     "batch.frames": "frames of those sessions",
 }

@@ -1,7 +1,8 @@
 """The tracker's step as a CUDA graph (``models/tracker.py``,
 ``utils/cuda_graph.py``, whose policy ``tests/test_torch_cuda_graph.py``
 tests): the tracer's counts made inside a capture, and the benchmark's
-reader of the replays; on a card, that replays give what the eager body
+readers of the replays (the tracker's, and loop verification's, which reads
+the same way); on a card, that replays give what the eager body
 gives, bit for bit.
 
 The tests marked ``gpu`` skip without a card. On a machine with a card and
@@ -71,32 +72,53 @@ def _span(name, t0, t1):
     return trace.Span(name, "span", int(t0 * 1e6), int(t1 * 1e6), -1, None)
 
 
-@pytest.mark.parametrize("replays,want", [(4, 100.0), (3, 75.0), (0, 0.0)])
-def test_track_graph_pct_reads_replays_over_tracked_frames(monkeypatch, replays, want):
-    spans = [_span("vo.track", 10 * i, 10 * i + 5) for i in range(4)]
-    counters = {"track.graph_replays": replays} if replays else {}
+# The graph-share readers that count replays over a span: (metric, the span
+# it counts, the counter of replays); loop verification's reads as the
+# tracker's does.
+READERS = {"track": ("track_graph_pct.vo", "vo.track", "track.graph_replays"),
+           "verify": ("verify_graph_pct.slam", "loop.verify", "verify.graph_replays")}
+READS = [(r, n, w) for r in READERS for n, w in [(4, 100.0), (3, 75.0), (0, 0.0)]]
+EMPTY = [(r, c) for r in READERS
+         for c in ["no recording", "no tracked frame", "a program without the counter"]]
+
+
+def _ids(cases):
+    """The tracker's cases as they were named before the list grew."""
+    return ["-".join(str(x) for x in case[1:]) if case[0] == "track"
+            else "-".join(str(x) for x in case) for case in cases]
+
+
+@pytest.mark.parametrize("reader,replays,want", READS, ids=_ids(READS))
+def test_track_graph_pct_reads_replays_over_tracked_frames(monkeypatch, reader, replays,
+                                                           want):
+    metric, span, counter = READERS[reader]
+    other = next(v for k, v in READERS.items() if k != reader)
+    spans = [_span(span, 10 * i, 10 * i + 5) for i in range(4)]
+    spans.append(_span(other[1], 50, 51))
+    counters = {counter: replays} if replays else {}
+    counters[other[2]] = 9
     counters["pose_opt.iters_dispatched"] = 60
     monkeypatch.setattr(program_trace, "snapshot", lambda: trace.Snapshot(
         spans=spans, counters=counters, series={}))
-    got = registry.module("metrics", "track_graph_pct.vo").read(None)
+    got = registry.module("metrics", metric).read(None)
     assert got == pytest.approx(want)
 
 
-@pytest.mark.parametrize("case", ["no recording", "no tracked frame",
-                                  "a program without the counter"])
-def test_track_graph_pct_reads_nothing_without_something_to_read(monkeypatch, case):
-    reader = registry.module("metrics", "track_graph_pct.vo")
+@pytest.mark.parametrize("reader,case", EMPTY, ids=_ids(EMPTY))
+def test_track_graph_pct_reads_nothing_without_something_to_read(monkeypatch, reader, case):
+    metric, span, counter = READERS[reader]
+    mod = registry.module("metrics", metric)
     if case == "no recording":
         assert program_trace.snapshot() is None
     elif case == "no tracked frame":
         monkeypatch.setattr(program_trace, "snapshot", lambda: trace.Snapshot(
-            spans=[_span("vo.frontend", 0, 1)], counters={}, series={}))
+            spans=[_span("mapping.step", 0, 1)], counters={counter: 1}, series={}))
     else:
         monkeypatch.setattr(program_trace, "snapshot", lambda: trace.Snapshot(
-            spans=[_span("vo.track", 0, 1)], counters={}, series={}))
+            spans=[_span(span, 0, 1)], counters={}, series={}))
         monkeypatch.setattr(trace, "COUNTERS", {k: v for k, v in trace.COUNTERS.items()
-                                                if not k.startswith("track.graph")})
-    assert reader.read(None) is None
+                                                if k != counter})
+    assert mod.read(None) is None
 
 
 def test_track_graph_pct_is_a_benchmark_metric():
